@@ -1,16 +1,18 @@
-"""ImaGen on PyTorch and CUDA: the frame-serving path on an NVIDIA Hopper GPU.
+"""ImaGen on PyTorch and CUDA: frame and video serving on an NVIDIA Hopper GPU.
 
 A second package beside the JAX reference (``src/repro/``), with the same
 layout so each module's counterpart is found by path:
 
   * :mod:`core <repro_torch.core>` — the planner (DSL -> DAG -> ILP schedule
-    -> line-buffer allocation -> simulator check -> ``PipelinePlan``) and
-    the seven spatial pipelines of the paper's Tbl. 3 with their payloads;
+    -> line-buffer allocation -> simulator check -> ``PipelinePlan``), the
+    autotuner and baselines, and the seven spatial and four video
+    pipelines with their payloads;
   * :mod:`kernels <repro_torch.kernels>` — the fused line-buffered stencil
-    kernel (CUDA C++ for ``sm_90a``), its plain PyTorch version, the
-    executor factory and ``fused_pipeline``;
+    kernel (CUDA C++ for ``sm_90a``, spatial and temporal), its plain
+    PyTorch versions, the executor factories and ``fused_pipeline``;
   * :mod:`imaging <repro_torch.imaging>` — ``PlanCache``, tiling and the
     batching ``FrameEngine``;
+  * :mod:`video <repro_torch.video>` — the streaming ``VideoEngine``;
   * :mod:`serve <repro_torch.serve>`, :mod:`obs <repro_torch.obs>`,
     :mod:`resilience <repro_torch.resilience>` — the scheduling,
     tracing/metrics and outcome types the engine is built on.

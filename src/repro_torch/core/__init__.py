@@ -6,8 +6,8 @@
     plan.total_alloc_bits       # Fig. 8a metric
     plan.power                  # Fig. 8b metric
 """
-from . import (algorithms, coalescing, codegen, contention, dag, dsl, ilp,
-               linebuffer, power, pruning, simulate)
+from . import (algorithms, baselines, coalescing, codegen, contention, dag,
+               dse, dsl, ilp, linebuffer, power, pruning, simulate)
 from .codegen import PipelinePlan, compile_pipeline, plan_from_dict
 from .dag import Edge, PipelineDAG, Stage
 from .dsl import Pipeline
@@ -16,7 +16,8 @@ from .linebuffer import DP, DPLC, FPGA_DP, FPGA_DPLC, FPGA_SP, QP, SP, \
     MemConfig
 
 __all__ = [
-    "algorithms", "coalescing", "codegen", "contention", "dag", "dsl",
+    "algorithms", "baselines", "coalescing", "codegen", "contention",
+    "dag", "dse", "dsl",
     "ilp", "linebuffer", "power", "pruning", "simulate", "PipelinePlan",
     "compile_pipeline", "plan_from_dict", "Edge", "PipelineDAG", "Stage",
     "Pipeline", "Schedule", "build_problem", "solve_schedule",

@@ -13,7 +13,8 @@ Payloads. Every stage payload is a :class:`Payload`, which carries the
 stage's math in the two forms the port runs it in:
 
   * ``payload(wins)`` — eager PyTorch over a dict of (..., sh, sw) window
-    tensors keyed by :func:`~repro_torch.core.dag.window_keys`. It keeps
+    tensors, (..., st, sh, sw) for a temporal edge, keyed by
+    :func:`~repro_torch.core.dag.window_keys`. It keeps
     the reference's accumulation order (dy-major sums of scalar taps) and
     never fuses a multiply into an add, so on one set of inputs it gives
     the same bits as the CUDA kernel.
@@ -24,7 +25,7 @@ stage's math in the two forms the port runs it in:
 """
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from typing import Callable, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -325,8 +326,138 @@ ALGORITHMS = {
     "unsharp-m": unsharp_m, "xcorr-m": xcorr_m, "denoise-m": denoise_m,
 }
 
+# ---------------------------------------------------- temporal window fns
+# Temporal windows arrive as [..., st, sh, sw] (axis -3 is time, causal:
+# index st-1 is the current frame, index 0 the oldest; frames before the
+# stream start read as zero, exactly like the spatial zero padding).
+# Reductions run dt-major, then dy, then dx, one rounding per operation —
+# the reference's order, which the kernel's ``stmean`` op repeats.
+def stmean_fn(st: int, sh: int = 1, sw: int = 1) -> Payload:
+    """Mean over an (st, sh, sw) spatio-temporal box: the sum in
+    dt, dy, dx order, then one multiply by float32(1 / (st*sh*sw))."""
+    k = _f32(1.0 / float(st * sh * sw))
+    cells = [(dt, dy, dx) for dt in range(st) for dy in range(sh)
+             for dx in range(sw)]
+
+    def fn(wins):
+        win = _single(wins)
+        acc = None
+        for dt, dy, dx in cells:
+            term = win[..., dt, dy, dx]
+            acc = term if acc is None else acc + term
+        return acc * k
+    return Payload("stmean", fn, consts=(k,))
+
+
+def _frame_diff(wins):
+    win = _single(wins)
+    return torch.abs(win[..., 1, 0, 0] - win[..., 0, 0, 0])
+
+
+_BG_LO = _f32(0.25)
+
+
+def _bg_subtract(wins):
+    cur = wins["in"][..., 0, 0]
+    bg = [v for k, v in wins.items() if k != "in"][0][..., 0, 0]
+    d = torch.abs(cur - bg)
+    return torch.where(d > _BG_LO, d, 0.0)
+
+
+# |current - previous| of a (2, 1, 1) temporal window
+frame_diff_fn = Payload("frame_diff", _frame_diff)
+# foreground mask: |current - background|, kept above 0.25
+bg_subtract_fn = Payload("bg_subtract", _bg_subtract, consts=(_BG_LO,),
+                         order=_in_first)
+# unsharp along time: unsharp's math with the temporal average as the blur
+tunsharp_fn = Payload("unsharp", _unsharp, consts=(_UNSHARP_K,),
+                      order=_in_first)
+
+
+# ------------------------------------------------------- video pipelines
+def tdenoise_t() -> PipelineDAG:
+    """Temporal-average denoise: mean of the last 4 frames, then a 3x3
+    spatial blur — a spatial stage downstream of a temporal one."""
+    p = Pipeline("tdenoise-t")
+    x = p.input("in")
+    ta = p.stage("tavg", [(x, 4, 1, 1)], stmean_fn(4))
+    b = p.stage("blur", [(ta, 3, 3)], conv_fn(G3))
+    p.output("out", [(b, 1, 1)])
+    return p.build()
+
+
+def tmotion_t() -> PipelineDAG:
+    """Frame-difference motion mask: |in_t - in_{t-1}|, spatially
+    smoothed, thresholded."""
+    p = Pipeline("tmotion-t")
+    x = p.input("in")
+    d = p.stage("diff", [(x, 2, 1, 1)], frame_diff_fn)
+    b = p.stage("blur", [(d, 3, 3)], conv_fn(G3))
+    th = p.stage("th", [(b, 1, 1)], thresh(0.05))
+    p.output("out", [(th, 1, 1)])
+    return p.build()
+
+
+def tbackground_t() -> PipelineDAG:
+    """Background subtraction with a running mean: the background
+    estimate is the mean of the last 8 input frames."""
+    p = Pipeline("tbackground-t")
+    x = p.input("in")                                    # MC stage
+    bg = p.stage("bg", [(x, 8, 1, 1)], stmean_fn(8))
+    fg = p.stage("fg", [(x, 1, 1), (bg, 1, 1)], bg_subtract_fn)
+    p.output("out", [(fg, 1, 1)])
+    return p.build()
+
+
+def tunsharp_t() -> PipelineDAG:
+    """3-frame unsharp-over-time: sharpen against a 3x3x3 spatio-temporal
+    mean — the one pipeline whose temporal taps carry a spatial window."""
+    p = Pipeline("tunsharp-t")
+    x = p.input("in")                                    # MC stage
+    sa = p.stage("stavg", [(x, 3, 3, 3)], stmean_fn(3, 3, 3))
+    sh = p.stage("sharp", [(x, 1, 1), (sa, 1, 1)], tunsharp_fn)
+    p.output("out", [(sh, 1, 1)])
+    return p.build()
+
+
+VIDEO_ALGORITHMS = {
+    "tdenoise-t": tdenoise_t, "tmotion-t": tmotion_t,
+    "tbackground-t": tbackground_t, "tunsharp-t": tunsharp_t,
+}
+
 # Paper Sec. 7: 320p = 480x320, 1080p = 1920x1080 (W x H)
 RESOLUTIONS = {"320p": (480, 320), "1080p": (1920, 1080)}
+
+
+def synthetic_pipeline(n_stages: int, mc_fraction: float = 1 / 3,
+                       seed: int = 0) -> PipelineDAG:
+    """Random chains with MC branches for the Sec. 8.2 scalability sweep."""
+    rng = np.random.RandomState(seed)
+    p = Pipeline(f"synth-{n_stages}")
+    prev = p.input("in")
+    budget = n_stages - 3            # minus input, final join, output
+    n_mc = max(1, int(n_stages * mc_fraction))
+    pending = []   # side branches waiting to re-join
+    i = 0
+    side_spent = 0
+    while i + side_spent < budget:
+        i += 1
+        reads = [(prev, int(rng.choice([1, 3])), int(rng.choice([1, 3])))]
+        if pending and rng.rand() < 0.5:
+            side = pending.pop()
+            reads.append((side, 1, 1))
+        cur = p.stage(f"k{i}", reads, identity_fn)
+        if side_spent < n_mc and i + side_spent + 1 < budget \
+                and rng.rand() < 0.6:
+            side = p.stage(f"k{i}b", [(prev, 3, 1)], identity_fn)
+            pending.append(side)
+            side_spent += 1
+        prev = cur
+    # drain leftover branches into the final stage
+    reads = [(prev, 1, 1)] + [(s, 1, 1) for s in pending]
+    last = p.stage("klast", reads, identity_fn)
+    p.output("out", [(last, 1, 1)])
+    return p.build()
 
 
 # -------------------------------------------------------- reference exec
@@ -335,6 +466,35 @@ def _windows(img: torch.Tensor, sh: int, sw: int) -> torch.Tensor:
     zero padded — a strided view over one padded copy of ``img``."""
     pad = F.pad(img, (sw - 1, 0, sh - 1, 0))
     return pad.unfold(-2, sh, 1).unfold(-2, sw, 1)
+
+
+def run_stages(dag: PipelineDAG, inputs: Mapping,
+                tap: Callable[[str, int], torch.Tensor] | None
+                ) -> dict[str, torch.Tensor]:
+    """Every stage over whole frames, topo order. A temporal window of
+    st frames stacks, on axis -3, ``tap(producer, j)`` for j = st-1 .. 1
+    (j frames back) and the producer's current value last."""
+    vals: dict[str, torch.Tensor] = {}
+    for name in dag.topo_order:
+        st = dag.stages[name]
+        if st.is_input:
+            vals[name] = torch.as_tensor(inputs[name], dtype=torch.float32)
+            continue
+        ins = dag.in_edges(name)
+        if st.fn is None:  # relay or output: identity on single producer
+            vals[name] = vals[ins[0].producer]
+            continue
+        wins = {}
+        for k, e in zip(window_keys(ins), ins):
+            if e.st == 1:
+                wins[k] = _windows(vals[e.producer], e.sh, e.sw)
+                continue
+            wins[k] = torch.stack(
+                [_windows(tap(e.producer, j) if j else vals[e.producer],
+                          e.sh, e.sw)
+                 for j in range(e.st - 1, -1, -1)], dim=-3)
+        vals[name] = st.fn(wins)
+    return vals
 
 
 def execute_reference(dag: PipelineDAG, inputs: dict
@@ -346,19 +506,42 @@ def execute_reference(dag: PipelineDAG, inputs: dict
     edge with st > 1) has no meaning on one frame.
     """
     if dag.is_temporal():
-        raise ValueError(f"{dag.name} has temporal edges; the video "
-                         f"reference is not ported yet")
-    vals: dict[str, torch.Tensor] = {}
-    for name in dag.topo_order:
-        st = dag.stages[name]
-        if st.is_input:
-            vals[name] = torch.as_tensor(inputs[name], dtype=torch.float32)
-            continue
-        ins = dag.in_edges(name)
-        if st.fn is None:  # relay or output: identity on single producer
-            vals[name] = vals[ins[0].producer]
-            continue
-        wins = {k: _windows(vals[e.producer], e.sh, e.sw)
-                for k, e in zip(window_keys(ins), ins)}
-        vals[name] = st.fn(wins)
-    return vals
+        raise ValueError(f"{dag.name} has temporal edges; use "
+                         f"execute_reference_video")
+    return run_stages(dag, inputs, None)
+
+
+def execute_reference_video(dag: PipelineDAG, videos: Mapping,
+                            return_history: bool = False):
+    """Multi-frame oracle: (T, H, W) inputs -> (T, H, W) output.
+
+    Frames run in stream order through plain per-frame stage evaluation;
+    each temporal producer's last d-1 frames are kept in a history list
+    (most recent first). Frames before t = 0 read as zero — the same
+    causal zero padding as the spatial frame top/left.
+
+    With ``return_history=True`` returns ``(output, history)`` where
+    ``history`` maps each temporal producer to its last d-1 frames,
+    newest first (shorter when T < d-1) — the state a serving session
+    needs to resume the stream.
+    """
+    first = next(iter(videos.values()))
+    depths = dag.temporal_depths()
+    history: dict[str, list[torch.Tensor]] = {p: [] for p in depths}
+    zero = torch.zeros(tuple(first.shape[1:]), dtype=torch.float32,
+                       device=torch.as_tensor(first[:1]).device)
+
+    def tap(p: str, j: int) -> torch.Tensor:
+        past = history[p]
+        return past[j - 1] if j <= len(past) else zero
+
+    outs = []
+    for t in range(first.shape[0]):
+        vals = run_stages(dag, {n: v[t] for n, v in videos.items()}, tap)
+        for p, d in depths.items():
+            history[p] = [vals[p]] + history[p][:d - 2]
+        outs.append(vals[dag.output_stages()[0]])
+    out = torch.stack(outs)
+    if return_history:
+        return out, history
+    return out

@@ -481,15 +481,17 @@ def _compile_pipeline(dag, w, mem, objective, prune, max_pad_iters,
 
 
 def plan_from_dict(d: Mapping, dag: PipelineDAG,
-                   configs: Sequence[MemConfig] = (DP, SP, DPLC, QP)
+                   configs: Sequence[MemConfig] | None = None
                    ) -> PipelinePlan:
     """Rebuild a :class:`PipelinePlan` from :meth:`PipelinePlan.to_dict`.
 
     The dict carries the schedule's start cycles and every buffer's
     allocation, but not the stage payloads or the memory configs' full
-    fields: ``dag`` re-binds the payloads, and each config is looked up
-    by name in ``configs`` (the ASIC set by default; pass the FPGA set
-    for FPGA plans). The allocation is recomputed by :func:`allocate`
+    fields: ``dag`` re-binds the payloads (temporal ones included: the
+    frame depths come from the DAG), and each config is looked up by
+    name in ``configs`` — by default the ASIC set plus the autotuner's
+    ``DPLC2``, so a tuned plan rebuilds too; pass the FPGA set for FPGA
+    plans. The allocation is recomputed by :func:`allocate`
     from the start cycles (Eq. 2 line counts) plus the ring padding the
     dict's line counts imply, then checked field by field against the
     dict, so a dict from another planner version that disagrees raises
@@ -498,6 +500,9 @@ def plan_from_dict(d: Mapping, dag: PipelineDAG,
     if d["pipeline"] != dag.name:
         raise ValueError(f"plan is for {d['pipeline']!r}, dag is "
                          f"{dag.name!r}")
+    if configs is None:
+        from .dse import DPLC2      # dse imports this module
+        configs = (DP, SP, DPLC, QP, DPLC2)
     w = int(d["w"])
     by_name = {c.name: c for c in configs}
     try:

@@ -19,6 +19,10 @@ PlanCache and the engine's job is purely scheduling:
     executor one request at a time (each frame's tiles ride the batched
     kernel, so slots stay full either way).
 
+``autotune=True`` serves every pipeline through the cache's autotuned
+memory config (one memoized design-space search per (pipeline, width));
+its results name the rung ``"tuned"`` instead of ``"default"``.
+
 An executor exception never strands queued work mid-``step``: the batch
 comes back as structured :class:`~repro_torch.resilience.FailedFrame`
 results. (The resilient mode of the reference engine — screening, rate
@@ -63,6 +67,7 @@ class CompletedFrame:
     pipeline: str
     output: torch.Tensor                  # (H, W) on the engine's device
     latency_s: float
+    rung: str = "default"                 # "tuned" under autotune
 
 
 class FrameEngine:
@@ -71,6 +76,7 @@ class FrameEngine:
                  tile_shape: tuple[int, int] = (128, 128),
                  rows_per_step: int = 8,
                  prefetch_depth: int = 1,
+                 autotune: bool = False,
                  registry=None,
                  device: str | torch.device = "cuda"):
         # ``registry``: a shared obs.MetricsRegistry for the serving
@@ -86,6 +92,8 @@ class FrameEngine:
         # clamped per-batch so frames shorter than R still execute
         self.rows_per_step = rows_per_step
         self.prefetch_depth = prefetch_depth
+        # opt-in: serve through the cache's autotuned memory config
+        self.autotune = autotune
         self._queues: dict[str, BoundedFifo] = {}
         self.metrics = EngineMetrics(registry=registry,
                                      prefix="frame_engine")
@@ -108,7 +116,7 @@ class FrameEngine:
         if dag.is_temporal():
             raise ValueError(
                 f"request {req.rid}: pipeline {req.pipeline!r} reads frame "
-                f"history; the video engine is not ported yet")
+                f"history; serve it with the VideoEngine")
         needed = set(dag.input_stages())
         if not needed <= set(req.frames):
             raise ValueError(
@@ -137,6 +145,10 @@ class FrameEngine:
         return sum(len(q) for q in self._queues.values())
 
     # ------------------------------------------------------------ execution
+    @property
+    def _rung(self) -> str:
+        return "tuned" if self.autotune else "default"
+
     def _execute(self, name: str, reqs: list[FrameRequest],
                  h: int, w: int, tiled: bool, rps: int) -> tuple[list, int]:
         """Run one batch; returns (outputs, smem_bytes). Ends in a device
@@ -149,12 +161,13 @@ class FrameEngine:
                 outs = [execute_tiled(self.cache, name, r.frames, th, tw,
                                       batch=self.max_batch,
                                       rows_per_step=rps,
+                                      tune=self.autotune,
                                       prefetch_depth=self.prefetch_depth)
                         for r in reqs]
                 synchronize(dev)
             return outs, self.cache.smem_bytes()
         ex = self.cache.executor_for(name, h, w, batch=self.max_batch,
-                                     rows_per_step=rps,
+                                     rows_per_step=rps, tune=self.autotune,
                                      prefetch_depth=self.prefetch_depth)
         with trace.span("engine.assemble", pipeline=name):
             inputs = {n: torch.stack(pad_batch(
@@ -217,7 +230,8 @@ class FrameEngine:
                 lat = now - r.submitted_at
                 self.metrics.observe_latency(lat)
                 results.append(CompletedFrame(rid=r.rid, pipeline=name,
-                                              output=out, latency_s=lat))
+                                              output=out, latency_s=lat,
+                                              rung=self._rung))
             sp.set(execute_s=dt, delivered=len(reqs))
         return results
 

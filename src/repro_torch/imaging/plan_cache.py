@@ -14,10 +14,13 @@ levels, mirroring the two compilation costs:
     *derived* (dataclasses.replace) instead of re-solved — the ILP runs
     once per (name, width, mem) no matter how many row-group variants
     are served.
-  * **executor level** — keyed by plan key + (height, batch) + device:
-    memoizes the kernel's stage table and launch geometry. Height/batch
-    are execution-shape parameters the plan itself is independent of,
-    so one plan fans out to many executors.
+  * **executor level** — keyed by plan key + (kind, height, batch or
+    chunk) + device: memoizes the kernel's stage table and launch
+    geometry. Height/batch are execution-shape parameters the plan
+    itself is independent of, so one plan fans out to many executors.
+    Video executors (frame-ring streaming, see
+    ``kernels.make_video_executor``) share this level under the
+    ``"video"`` kind leg.
 
 Both levels are LRU-bounded (``max_plans`` / ``max_execs``): shape-
 diverse traffic — every distinct width is a new plan, every distinct
@@ -27,6 +30,14 @@ built from it (they hold the plan alive and are exactly as stale).
 Evictions bump ``stats.plan_evictions`` / ``stats.exec_evictions``.
 
 Both levels report hit/miss/compile-time stats for the serving metrics.
+
+A third memo sits above both: the **autotune level** — keyed by
+``(pipeline, width)`` — runs the design-space search (core.dse.autotune)
+once and pins the winning per-stage memory combo. ``tune=True`` on
+``plan_for`` / ``executor_for`` / ``video_executor_for`` resolves the
+memory spec through it, so one search serves every row-group sibling,
+height, batch, and chunk variant; the winner's already-compiled plan is
+seeded into the plan level so tuning never pays the ILP twice.
 """
 from __future__ import annotations
 
@@ -38,13 +49,15 @@ from typing import Callable, Mapping
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch.core import algorithms
+from repro_torch.core import algorithms, dse
 from repro_torch.core.codegen import (PipelinePlan, compile_pipeline,
                                       mem_cfg_key)
 from repro_torch.core.dag import PipelineDAG
 from repro_torch.core.linebuffer import DP, MemConfig
 from repro_torch.kernels.stencil_pipeline import (StencilExecutor,
-                                                  make_executor)
+                                                  VideoExecutor,
+                                                  make_executor,
+                                                  make_video_executor)
 from repro_torch.obs import trace
 from repro_torch.obs.metrics import MetricsRegistry
 
@@ -52,6 +65,8 @@ _STAT_FIELDS = (
     "plan_hits", "plan_misses", "plan_evictions",
     "exec_hits", "exec_misses", "exec_evictions",
     "plan_compile_s", "exec_compile_s",
+    "tunes",                    # autotune searches run (one per (name, w))
+    "tune_s",
 )
 
 
@@ -91,9 +106,10 @@ class PlanCache:
     """Long-lived compiled-artifact store for the frame-serving layer.
 
     ``pipelines`` maps name -> DAG factory (defaults to the paper's
-    Table-3 set). The DAG is built once per name and shared by every plan
-    and executor under that name. ``device`` is where every executor the
-    cache builds runs: the GPU unless ``device="cpu"``.
+    Table-3 set plus the temporal video pipelines). The DAG is built
+    once per name and shared by every plan and executor under that name.
+    ``device`` is where every executor the cache builds runs: the GPU
+    unless ``device="cpu"``.
     """
 
     def __init__(self,
@@ -102,16 +118,26 @@ class PlanCache:
                  device: str | torch.device = "cuda",
                  max_plans: int = 256,
                  max_execs: int = 256,
+                 tune_options: tuple[MemConfig, ...] = dse.TUNE_OPTIONS,
+                 tune_max_candidates: int = 128,
                  registry: MetricsRegistry | None = None):
         if max_plans < 1 or max_execs < 1:
             raise ValueError(f"max_plans/max_execs must be >= 1, got "
                              f"{max_plans}/{max_execs}")
         self.device = resolve_device(device)
         self._factories = dict(pipelines if pipelines is not None
-                               else algorithms.ALGORITHMS)
+                               else {**algorithms.ALGORITHMS,
+                                     **algorithms.VIDEO_ALGORITHMS})
         self._dags: dict[str, PipelineDAG] = {}
         self._plans: OrderedDict[tuple, PipelinePlan] = OrderedDict()
-        self._execs: OrderedDict[tuple, StencilExecutor] = OrderedDict()
+        self._execs: OrderedDict[tuple, StencilExecutor | VideoExecutor] = \
+            OrderedDict()
+        # autotune memo: (name, w) -> TuningResult, LRU-bounded like the
+        # plan level; every R-sibling plan and executor variant derives
+        # from the same winner
+        self._tunings: OrderedDict[tuple, dse.TuningResult] = OrderedDict()
+        self.tune_options = tune_options
+        self.tune_max_candidates = tune_max_candidates
         self.default_mem = mem
         self.max_plans = max_plans
         self.max_execs = max_execs
@@ -136,11 +162,58 @@ class PlanCache:
             del self._execs[k]
         self.stats.exec_evictions += len(stale)
 
+    # ------------------------------------------------------------ autotune
+    def tuning_for(self, name: str, w: int,
+                   rows_per_step: int = 1) -> dse.TuningResult:
+        """Memoized design-space search for (pipeline, width).
+
+        The search runs at the first caller's ``rows_per_step``; the
+        winning memory combo is reused for every row-group variant (the
+        schedule/allocation are R-independent, see plan_for). The
+        winner's compiled plan is seeded into the plan level so the
+        first tuned plan_for is a hit, not a re-solve.
+        """
+        key = (name, w)
+        if key in self._tunings:
+            self._tunings.move_to_end(key)
+            return self._tunings[key]
+        t0 = time.perf_counter()
+        with trace.span("cache.tune", pipeline=name, w=w, hit=False):
+            res = dse.autotune(self.dag_for(name), w,
+                               options=self.tune_options,
+                               default=self.default_mem,
+                               rows_per_step=rows_per_step,
+                               max_candidates=self.tune_max_candidates)
+        self.stats.tunes += 1
+        self.stats.tune_s += time.perf_counter() - t0
+        while len(self._tunings) >= self.max_plans:
+            self._tunings.popitem(last=False)
+        self._tunings[key] = res
+        pkey = res.best.plan.cache_key
+        if pkey not in self._plans:
+            while len(self._plans) >= self.max_plans:
+                self._evict_lru_plan()
+            self._plans[pkey] = res.best.plan
+        return res
+
+    def tuned_mem_for(self, name: str, w: int,
+                      rows_per_step: int = 1) -> dict[str, MemConfig]:
+        return self.tuning_for(name, w, rows_per_step).best.mem_cfg
+
+    def _resolve_mem(self, name: str, w: int, mem, rows_per_step: int,
+                     tune: bool):
+        if tune:
+            if mem is not None:
+                raise ValueError("tune=True picks the memory config; "
+                                 "pass either mem= or tune=, not both")
+            return self.tuned_mem_for(name, w, rows_per_step)
+        return self.default_mem if mem is None else mem
+
     def plan_for(self, name: str, w: int,
                  mem: MemConfig | Mapping[str, MemConfig] | None = None,
-                 rows_per_step: int = 1,
+                 rows_per_step: int = 1, tune: bool = False,
                  prefetch_depth: int = 1) -> PipelinePlan:
-        mem = self.default_mem if mem is None else mem
+        mem = self._resolve_mem(name, w, mem, rows_per_step, tune)
         mkey = mem_cfg_key(mem)
         key = (name, w, mkey, rows_per_step, prefetch_depth)
         if key in self._plans:
@@ -172,15 +245,13 @@ class PlanCache:
         self._plans[key] = plan
         return plan
 
-    def executor_for(self, name: str, h: int, w: int,
-                     batch: int | None = None,
-                     mem: MemConfig | Mapping[str, MemConfig] | None = None,
-                     rows_per_step: int = 1,
-                     prefetch_depth: int = 1) -> StencilExecutor:
-        mem = self.default_mem if mem is None else mem
+    def _cached_executor(self, kind: str, name: str, h: int, w: int,
+                         shape_leg: int | None, mem, rows_per_step: int,
+                         tune: bool, prefetch_depth: int, build):
+        mem = self._resolve_mem(name, w, mem, rows_per_step, tune)
         # leading 5 fields == plan cache_key, so plan eviction can find us
         key = (name, w, mem_cfg_key(mem), rows_per_step, prefetch_depth,
-               h, batch, str(self.device))
+               kind, h, shape_leg, str(self.device))
         if key in self._execs:
             self.stats.exec_hits += 1
             self._execs.move_to_end(key)
@@ -189,10 +260,9 @@ class PlanCache:
                              prefetch_depth=prefetch_depth)
         self.stats.exec_misses += 1
         t0 = time.perf_counter()
-        with trace.span("cache.exec", pipeline=name, h=h, w=w, batch=batch,
-                        hit=False):
-            ex = make_executor(self.dag_for(name), h, w, batch=batch,
-                               plan=plan, device=self.device)
+        with trace.span("cache.exec", pipeline=name, kind=kind, h=h, w=w,
+                        batch=shape_leg, hit=False):
+            ex = build(self.dag_for(name), plan)
         self.stats.exec_compile_s += time.perf_counter() - t0
         while len(self._execs) >= self.max_execs:
             self._execs.popitem(last=False)
@@ -200,9 +270,39 @@ class PlanCache:
         self._execs[key] = ex
         return ex
 
+    def executor_for(self, name: str, h: int, w: int,
+                     batch: int | None = None,
+                     mem: MemConfig | Mapping[str, MemConfig] | None = None,
+                     rows_per_step: int = 1, tune: bool = False,
+                     prefetch_depth: int = 1) -> StencilExecutor:
+        return self._cached_executor(
+            "frame", name, h, w, batch, mem, rows_per_step, tune,
+            prefetch_depth,
+            lambda dag, plan: make_executor(dag, h, w, batch=batch,
+                                            plan=plan, device=self.device))
+
+    def video_executor_for(self, name: str, h: int, w: int,
+                           chunk: int | None = None,
+                           mem: MemConfig | Mapping[str, MemConfig]
+                           | None = None,
+                           rows_per_step: int = 1, tune: bool = False,
+                           prefetch_depth: int = 1) -> VideoExecutor:
+        """Streaming (frame-ring) executor — the video analogue of
+        :meth:`executor_for`. Also serves spatial DAGs (empty state), so
+        the VideoEngine can carry single-frame pipelines as degenerate
+        streams. ``tune=True`` resolves the memory combo through the
+        memoized autotuner; chunk variants are siblings of the same
+        tuned plan."""
+        return self._cached_executor(
+            "video", name, h, w, chunk, mem, rows_per_step, tune,
+            prefetch_depth,
+            lambda dag, plan: make_video_executor(dag, h, w, plan=plan,
+                                                  chunk=chunk,
+                                                  device=self.device))
+
     def evict_executors(self) -> int:
-        """Drop every resident executor (plans stay). Returns the number
-        of executors evicted."""
+        """Drop every resident executor (plans and tunings stay). Returns
+        the number of executors evicted."""
         n = len(self._execs)
         self._execs.clear()
         self.stats.exec_evictions += n
@@ -221,6 +321,7 @@ class PlanCache:
             **self.stats.snapshot(),
             "plans_resident": len(self._plans),
             "execs_resident": len(self._execs),
+            "tunings_resident": len(self._tunings),
             "max_plans": self.max_plans,
             "max_execs": self.max_execs,
             "smem_bytes": self.smem_bytes(),

@@ -97,6 +97,7 @@ def execute_tiled(cache: PlanCache, name: str, images: dict,
                   tile_h: int, tile_w: int,
                   batch: int = 8,
                   rows_per_step: int | None = None,
+                  tune: bool = False,
                   prefetch_depth: int = 1) -> torch.Tensor:
     """Run pipeline ``name`` over a frame of any size via tiling.
 
@@ -110,7 +111,9 @@ def execute_tiled(cache: PlanCache, name: str, images: dict,
     tiles.
 
     ``rows_per_step`` defaults from the tile shape
-    (:func:`rows_per_step_for_tile`). Returns the (H, W) output.
+    (:func:`rows_per_step_for_tile`); ``tune=True`` serves tiles through
+    the cache's autotuned memory config (tiles share one compiled width,
+    so one search covers the whole frame). Returns the (H, W) output.
     """
     dag = cache.dag_for(name)
     first = next(iter(images.values()))
@@ -130,7 +133,7 @@ def execute_tiled(cache: PlanCache, name: str, images: dict,
         tiles = {n: torch.stack([f[a:a + th, b:b + tw] for (a, b) in chunk])
                  for n, f in frames.items()}
         ex = cache.executor_for(name, th, tw, batch=len(chunk),
-                                rows_per_step=rows_per_step,
+                                rows_per_step=rows_per_step, tune=tune,
                                 prefetch_depth=prefetch_depth)
         res = ex(tiles)
         for j, (a, b) in enumerate(chunk):

@@ -1,20 +1,22 @@
 // Fused line-buffered stencil pipeline on Hopper (sm_90a).
 //
 // Replaces repro/kernels/stencil_pipeline.py::_build_pipeline_call of the
-// JAX package at prefetch_depth=1: the single-frame spatial kernel and its
-// batched grid. One launch runs a whole pipeline DAG over a batch of
-// frames; every intermediate stage lives only in shared-memory ring line
-// buffers (the paper's line buffer), so device memory sees each input
-// pixel read once and each output pixel written once.
+// JAX package at prefetch_depth=1: the single-frame spatial kernel, its
+// batched grid, and its temporal form (history taps and frame outputs).
+// One launch runs a whole pipeline DAG over a batch of frames; every
+// intermediate stage lives only in shared-memory ring line buffers (the
+// paper's line buffer), so device memory sees each input pixel read once
+// and each output pixel written once.
 //
 // What bounds it: per frame it must move (n_inputs + 1) * h * w * 4 bytes
 // -- 16.6 MB for one 1080p input and output, about 5 us at the 3.35 TB/s
 // of an H100 SXM -- against a few tens of float32 operations per pixel,
-// so the bound is device-memory bytes. This first kernel is simple rather
-// than fast: it loads with plain coalesced reads, runs one thread per
-// (row, column) of a row group, and synchronises the block between
-// stages. TMA row loads into an mbarrier ring and warp specialisation are
-// later work.
+// so the bound is device-memory bytes. A temporal launch adds the history
+// frames it reads (d-1 per temporal producer) and the frames of internal
+// temporal producers it writes. This kernel is simple rather than fast:
+// it loads with plain coalesced reads, runs one thread per (row, column)
+// of a row group, and synchronises the block between stages. TMA row
+// loads into an mbarrier ring and warp specialisation are later work.
 //
 // Work split. The TPU kernel walks a frame sequentially on one core with
 // rings carried across grid steps. Here one CTA owns one (frame, column
@@ -33,12 +35,24 @@
 //   * rows at and below h (the last partial row group) and columns at
 //     and beyond w compute from zero input and are never stored.
 //
+// Temporal pipelines. Each history tap (producer p, j frames back) is a
+// pseudo-input stage (OP_TAP) with its own ring, filled like an input
+// over the CTA's strip and band halos. Frame b of the launch reads tap j
+// from input frame b - j of the same launch when b >= j (a chunk of
+// consecutive frames serves its own history), else from slot j - b - 1
+// of p's frame-ring state (newest first), so no history frame is copied
+// to build the feed. A producer's rings lie consecutively, oldest tap
+// first and its live ring last, so an operand (first ring, st, sh, sw)
+// reads time index dt from ring first + dt. An internal temporal
+// producer also writes its frame to an extra output, which the host
+// rolls into the state; such a launch holds one frame.
+//
 // The pipeline comes as a stage table built once per plan on the host
 // (repro_torch/kernels/stencil_pipeline.py::build_program) and passed by
 // value as a __grid_constant__ parameter: per stage an op code, its own
-// ring, its producers' rings in operand order with their window shapes,
-// and offsets into a float32 constant table. One compiled kernel serves
-// every pipeline; no source is generated per DAG.
+// ring, its operands (first ring, st, sh, sw), and offsets into a
+// float32 constant table. One compiled kernel serves every pipeline; no
+// source is generated per DAG.
 //
 // Numerics: every product and sum goes through the _rn intrinsics (and the
 // library is built with -fmad=false), in the reference's order, and sqrt
@@ -52,28 +66,33 @@ namespace {
 
 constexpr int kHdr = 16;
 constexpr int kMaxStages = 24;
-constexpr int kStageInts = 16;
+constexpr int kStageInts = 24;
 constexpr int kMaxRings = 24;
 constexpr int kMaxWts = 256;
-constexpr int kMaxFeeds = 4;
+constexpr int kMaxFeeds = 8;      // input frames, then frame-ring states
+constexpr int kMaxOuts = 4;       // the output, then frame outputs
 constexpr int kThreads = 256;
 
 // op codes: the order of stencil_pipeline.py::OPS
 enum Op {
   OP_INPUT = 0, OP_RELAY, OP_CONV, OP_SQUARE, OP_IDENTITY, OP_MAG, OP_PROD,
-  OP_NMS, OP_THRESH, OP_UNSHARP, OP_XCORR, OP_DENOISE_COMB, OP_HARRIS_RESP
+  OP_NMS, OP_THRESH, OP_UNSHARP, OP_XCORR, OP_DENOISE_COMB, OP_HARRIS_RESP,
+  OP_TAP, OP_STMEAN, OP_FRAME_DIFF, OP_BG_SUBTRACT
 };
 
 // header fields
 enum Hdr {
   H_NSTAGES = 0, H_R, H_H, H_W, H_STRIP_W, H_HALO_LEFT, H_NCOLS, H_BAND_H,
-  H_HALO_UP, H_SMEM_BYTES
+  H_HALO_UP, H_SMEM_BYTES, H_TEMPORAL
 };
 
-// stage fields; S_SRC, S_SH and S_SW each hold up to 3 operands
+// stage fields; S_SRC, S_ST, S_SH and S_SW each hold up to 3 operands.
+// S_FEED is an input's feed (or, for a tap, its producer's input feed,
+// -1 for an internal producer); S_STATE and S_TAPJ locate a tap's
+// frame-ring state and its frames back; S_FOUT is a frame output or -1.
 enum Field {
-  S_OP = 0, S_RING, S_FINAL, S_FEED, S_NSRC, S_SRC = 5, S_SH = 8, S_SW = 11,
-  S_WOFF = 14
+  S_OP = 0, S_RING, S_FINAL, S_FEED, S_NSRC, S_WOFF, S_FOUT, S_STATE,
+  S_TAPJ, S_SRC = 9, S_ST = 12, S_SH = 15, S_SW = 18
 };
 
 struct Program {
@@ -87,10 +106,18 @@ struct Feeds {
   const float* p[kMaxFeeds];
 };
 
+struct Outs {
+  float* p[kMaxOuts];
+};
+
+// kTemporal: the instantiation that also runs history taps, the temporal
+// ops and frame outputs. Spatial programs launch the other one, whose code
+// is the spatial kernel's alone (the temporal cases compile to nothing).
+template <bool kTemporal>
 __global__ void __launch_bounds__(kThreads)
 stencil_pipeline_kernel(const __grid_constant__ Program P,
                         const __grid_constant__ Feeds F,
-                        float* __restrict__ out) {
+                        const __grid_constant__ Outs O) {
   extern __shared__ float smem[];
   const int n_stages = P.hdr[H_NSTAGES];
   const int R = P.hdr[H_R];
@@ -106,7 +133,8 @@ stencil_pipeline_kernel(const __grid_constant__ Program P,
   const int y0 = blockIdx.y * P.hdr[H_BAND_H];
   const int y1 = min(y0 + P.hdr[H_BAND_H], h);
   const int rlo = max(y0 - P.hdr[H_HALO_UP], 0);
-  const size_t frame = static_cast<size_t>(blockIdx.z) * h * w;
+  const size_t hw = static_cast<size_t>(h) * w;
+  const size_t frame = blockIdx.z * hw;
   const int items = R * ncols;
 
   for (int row0 = rlo; row0 < y1; row0 += R) {
@@ -119,14 +147,18 @@ stencil_pipeline_kernel(const __grid_constant__ Program P,
         const int lc = idx - i * ncols;
         const int row = row0 + i;
         const int col = cbase + lc;
-        // window element (dy, dx) of operand j: pixel
-        // (row - sh + 1 + dy, col - sw + 1 + dx) of its producer's ring
-        auto tap = [&](int j, int dy, int dx) -> float {
+        // window element (dt, dy, dx) of operand j: pixel
+        // (row - sh + 1 + dy, col - sw + 1 + dx) of ring first + dt
+        // (time index st - 1, the current frame, is the producer's ring)
+        auto tap3 = [&](int j, int dt, int dy, int dx) -> float {
           const int r = row - S[S_SH + j] + 1 + dy;
           const int c = col - S[S_SW + j] + 1 + dx;
           if (r < rlo || c < clo) return 0.f;
-          const int* rg = P.ring[S[S_SRC + j]];
+          const int* rg = P.ring[S[S_SRC + j] + dt];
           return smem[rg[0] + (r % rg[1]) * ncols + (c - cbase)];
+        };
+        auto tap = [&](int j, int dy, int dx) -> float {
+          return tap3(j, 0, dy, dx);
         };
         float v = 0.f;
         switch (op) {
@@ -135,6 +167,41 @@ stencil_pipeline_kernel(const __grid_constant__ Program P,
               v = __ldg(F.p[S[S_FEED]] + frame + static_cast<size_t>(row) * w
                         + col);
             break;
+          case OP_TAP:
+            if (kTemporal && row < h && col >= 0 && col < w) {
+              // frame b's tap j is launch frame b - j, or state slot
+              // j - b - 1 (newest first) when that frame precedes it
+              const int b = blockIdx.z, j = S[S_TAPJ];
+              const float* src = b >= j
+                  ? F.p[S[S_FEED]] + (b - j) * hw
+                  : F.p[S[S_STATE]] + (j - b - 1) * hw;
+              v = __ldg(src + static_cast<size_t>(row) * w + col);
+            }
+            break;
+          case OP_STMEAN: {
+            if (!kTemporal) break;
+            // dt-major, then dy, then dx; one multiply by 1/(st*sh*sw)
+            const int st = S[S_ST], sh = S[S_SH], sw = S[S_SW];
+            int k = 0;
+            for (int dt = 0; dt < st; ++dt)
+              for (int dy = 0; dy < sh; ++dy)
+                for (int dx = 0; dx < sw; ++dx, ++k) {
+                  const float t = tap3(0, dt, dy, dx);
+                  v = k ? __fadd_rn(v, t) : t;
+                }
+            v = __fmul_rn(v, wt[0]);
+            break;
+          }
+          case OP_FRAME_DIFF:
+            if (kTemporal)
+              v = fabsf(__fsub_rn(tap3(0, 1, 0, 0), tap3(0, 0, 0, 0)));
+            break;
+          case OP_BG_SUBTRACT: {
+            if (!kTemporal) break;
+            const float d = fabsf(__fsub_rn(tap(0, 0, 0), tap(1, 0, 0)));
+            v = d > wt[0] ? d : 0.f;
+            break;
+          }
           case OP_RELAY:
           case OP_IDENTITY:
             v = tap(0, 0, 0);
@@ -210,8 +277,13 @@ stencil_pipeline_kernel(const __grid_constant__ Program P,
           const int* rg = P.ring[S[S_RING]];
           smem[rg[0] + (row % rg[1]) * ncols + lc] = v;
         }
-        if (S[S_FINAL] && row >= y0 && row < y1 && col >= x0 && col < x1)
-          out[frame + static_cast<size_t>(row) * w + col] = v;
+        const bool fout = kTemporal && S[S_FOUT] >= 0;
+        if ((S[S_FINAL] || fout) && row >= y0 && row < y1 && col >= x0
+            && col < x1) {
+          const size_t px = frame + static_cast<size_t>(row) * w + col;
+          if (S[S_FINAL]) O.p[0][px] = v;
+          if (fout) O.p[S[S_FOUT]][px] = v;
+        }
       }
       // the next stage reads this stage's ring; the next row group
       // overwrites ring rows this stage's consumers have read
@@ -223,10 +295,12 @@ stencil_pipeline_kernel(const __grid_constant__ Program P,
 }  // namespace
 
 // table: kHdr + kMaxStages * kStageInts + kMaxRings * 2 ints; wts: kMaxWts
-// floats; feeds: kMaxFeeds device pointers. Launches on ``stream`` and
-// returns the cudaError_t of the launch (0 on success).
+// floats; feeds: kMaxFeeds device pointers (inputs, then frame-ring
+// states); outs: kMaxOuts (the output, then frame outputs). Launches on
+// ``stream`` and returns the cudaError_t of the launch (0 on success).
 extern "C" int stencil_pipeline_launch(const int* table, const float* wts,
-                                       const void* const* feeds, void* out,
+                                       const void* const* feeds,
+                                       void* const* outs,
                                        int grid_x, int grid_y, int grid_z,
                                        void* stream) {
   Program P;
@@ -237,14 +311,16 @@ extern "C" int stencil_pipeline_launch(const int* table, const float* wts,
   Feeds F;
   for (int i = 0; i < kMaxFeeds; ++i)
     F.p[i] = static_cast<const float*>(feeds[i]);
+  Outs O;
+  for (int i = 0; i < kMaxOuts; ++i) O.p[i] = static_cast<float*>(outs[i]);
   const int smem = P.hdr[H_SMEM_BYTES];
+  void (*kernel)(Program, Feeds, Outs) = P.hdr[H_TEMPORAL]
+      ? stencil_pipeline_kernel<true> : stencil_pipeline_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      stencil_pipeline_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  stencil_pipeline_kernel<<<dim3(grid_x, grid_y, grid_z), kThreads, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      P, F, static_cast<float*>(out));
+  kernel<<<dim3(grid_x, grid_y, grid_z), kThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(P, F, O);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -252,13 +328,16 @@ extern "C" const char* stencil_pipeline_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// CTAs of the kernel that fit on one SM at ``smem_bytes`` of dynamic
-// shared memory each, written to ``*blocks``; returns the cudaError_t.
-extern "C" int stencil_pipeline_blocks_per_sm(int smem_bytes, int* blocks) {
+// CTAs of the kernel (the temporal instantiation when ``temporal``) that
+// fit on one SM at ``smem_bytes`` of dynamic shared memory each, written
+// to ``*blocks``; returns the cudaError_t.
+extern "C" int stencil_pipeline_blocks_per_sm(int smem_bytes, int temporal,
+                                              int* blocks) {
+  void (*kernel)(Program, Feeds, Outs) = temporal
+      ? stencil_pipeline_kernel<true> : stencil_pipeline_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      stencil_pipeline_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, stencil_pipeline_kernel, kThreads, smem_bytes));
+      blocks, kernel, kThreads, smem_bytes));
 }

@@ -6,23 +6,29 @@ row groups of ``rows_per_step`` (R), reading its producers' rows from
 shared-memory ring line buffers and writing its own ring, so only input
 and output pixels touch device memory. One CTA owns one (frame, column
 strip, row band) and recomputes the strip's and band's halo from real
-input (see the source note there).
+input (see the source note there). Temporal pipelines add history taps
+— pseudo-inputs with their own rings, read from the caller's frame-ring
+state or from earlier frames of the same launch — and frame outputs for
+internal temporal producers.
 
 This module holds, beside the kernel:
 
   * :func:`build_program` — the per-plan stage table the kernel walks
     (op codes, rings, operand order, float32 constants), and the launch
     geometry and shared-memory bill;
-  * :func:`stencil_pipeline_plain` — the kernel's plain PyTorch version:
-    whole-frame, stage by stage, through the same payloads. The CPU
-    tests use it, and ``chip_smoke.py`` holds the kernel against it;
+  * :func:`stencil_pipeline_plain` and :func:`video_pipeline_plain` —
+    the kernel's plain PyTorch versions: whole-frame, stage by stage,
+    through the same payloads. The CPU tests use them, and
+    ``chip_smoke.py`` holds the kernel against them;
   * :data:`stencil_pipeline` — the wrapper. A CPU tensor runs the plain
     version; a CUDA tensor launches the kernel or raises;
-  * :class:`StencilExecutor` and :func:`make_executor` — the
-    serving-side artifact over one (h, w, batch) shape.
+  * :class:`StencilExecutor` / :func:`make_executor` (spatial frames)
+    and :class:`VideoExecutor` / :func:`make_video_executor` (frame
+    streams with explicit frame-ring state) — the serving-side
+    artifacts over one shape.
 
-Only spatial pipelines at ``prefetch_depth == 1`` run here; temporal
-pipelines and deeper prefetch are refused with an error.
+Only ``prefetch_depth == 1`` runs here; deeper prefetch is refused with
+an error.
 """
 from __future__ import annotations
 
@@ -34,8 +40,10 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch.core.algorithms import Payload, execute_reference
-from repro_torch.core.codegen import PipelinePlan
+from repro_torch.core.algorithms import (Payload, execute_reference,
+                                        run_stages)
+from repro_torch.core.codegen import (PipelinePlan, frame_outputs, tap_name,
+                                      temporal_taps)
 from repro_torch.core.dag import PipelineDAG, window_keys
 from repro_torch.obs import trace
 
@@ -43,21 +51,27 @@ from . import _build
 
 # op codes, in the order of ``enum Op`` in csrc/stencil_pipeline.cu
 OPS = ("input", "relay", "conv", "square", "identity", "mag", "prod",
-       "nms", "thresh", "unsharp", "xcorr", "denoise_comb", "harris_resp")
+       "nms", "thresh", "unsharp", "xcorr", "denoise_comb", "harris_resp",
+       "tap", "stmean", "frame_diff", "bg_subtract")
 # operands each payload op reads, and the float32 scalars it takes
 _ARITY = {"conv": 1, "square": 1, "identity": 1, "mag": 2, "prod": 2,
           "nms": 1, "thresh": 1, "unsharp": 2, "xcorr": 2,
-          "denoise_comb": 3, "harris_resp": 1}
-_CONSTS = {"mag": 1, "thresh": 1, "unsharp": 1, "harris_resp": 1}
+          "denoise_comb": 3, "harris_resp": 1, "stmean": 1,
+          "frame_diff": 1, "bg_subtract": 2}
+_CONSTS = {"mag": 1, "thresh": 1, "unsharp": 1, "harris_resp": 1,
+           "stmean": 1, "bg_subtract": 1}
+# ops whose operand is a temporal window; every other op reads st == 1
+_TEMPORAL_OPS = ("stmean", "frame_diff")
 
 # table layout, as in csrc/stencil_pipeline.cu
-HDR, MAX_STAGES, STAGE_INTS, MAX_RINGS = 16, 24, 16, 24
-MAX_WTS, MAX_FEEDS, MAX_SRC = 256, 4, 3
+HDR, MAX_STAGES, STAGE_INTS, MAX_RINGS = 16, 24, 24, 24
+MAX_WTS, MAX_FEEDS, MAX_OUTS, MAX_SRC = 256, 8, 4, 3
 TABLE_INTS = HDR + MAX_STAGES * STAGE_INTS + MAX_RINGS * 2
 (H_NSTAGES, H_R, H_H, H_W, H_STRIP_W, H_HALO_LEFT, H_NCOLS, H_BAND_H,
- H_HALO_UP, H_SMEM_BYTES) = range(10)
-S_OP, S_RING, S_FINAL, S_FEED, S_NSRC, S_SRC, S_SH, S_SW, S_WOFF = \
-    0, 1, 2, 3, 4, 5, 8, 11, 14
+ H_HALO_UP, H_SMEM_BYTES, H_TEMPORAL) = range(11)
+(S_OP, S_RING, S_FINAL, S_FEED, S_NSRC, S_WOFF, S_FOUT, S_STATE,
+ S_TAPJ) = range(9)
+S_SRC, S_ST, S_SH, S_SW = 9, 12, 15, 18
 
 # Launch geometry from perf/geometry_sweep.py at 1080p, R=8: faster than
 # every 128-column cell for all seven pipelines, at one frame and at four
@@ -93,6 +107,17 @@ def smem_rings(dag: PipelineDAG, alloc_buffers: Mapping | None,
     return rings
 
 
+def smem_tap_rings(dag: PipelineDAG, rows_per_step: int
+                   ) -> dict[tuple[str, int], int]:
+    """Shared-memory ring rows per temporal tap (producer, j frames
+    back): one read slab, ``R + sh - 1`` rows over the edges from the
+    producer with st > j (no plan to grow from: history frames stream
+    from device memory)."""
+    return {(p, j): rows_per_step - 1 + max(
+        e.sh for e in dag.out_edges(p) if e.st > j)
+        for (p, j) in temporal_taps(dag)}
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class StencilProgram:
     """One pipeline at one frame shape, ready to launch.
@@ -101,12 +126,17 @@ class StencilProgram:
     table; ``grid_x`` column strips of ``strip_w`` by ``grid_y`` row bands
     of ``band_h`` make one frame's CTAs. ``smem_bytes`` is the dynamic
     shared memory each CTA reserves — the port's on-chip bill.
+    ``feeds`` are the input stages, ``states`` the temporal producers
+    whose frame rings the launch reads, ``frame_outs`` the internal
+    temporal producers whose frames it writes beside the output.
     """
     dag: PipelineDAG
     h: int
     w: int
     rows_per_step: int
     feeds: tuple[str, ...]
+    states: tuple[str, ...]
+    frame_outs: tuple[str, ...]
     table: np.ndarray
     wts: np.ndarray
     strip_w: int
@@ -134,12 +164,15 @@ def build_program(dag: PipelineDAG, h: int, w: int, rows_per_step: int,
     """Resolve ``dag`` into the kernel's stage table for (h, w) frames.
 
     Operand order is resolved here, once: each payload maps its in-edges
-    (window-key order) to its op's operands. ``frames`` is the batch the
-    launch geometry is sized for; ``strip_w`` and ``target_ctas`` set
-    that geometry (the defaults are what the executors use; other values
-    serve the geometry sweep). Raises ValueError for a DAG the kernel
-    cannot run (unknown payload, table overflow, shared memory over the
-    block limit).
+    (window-key order) to its op's operands. A temporal DAG gets one tap
+    stage per (producer, j frames back) ahead of the other stages, and
+    each producer's rings are laid out oldest tap first, live ring last,
+    so an operand's (first ring, st) spans its time window. ``frames``
+    is the batch the launch geometry is sized for; ``strip_w`` and
+    ``target_ctas`` set that geometry (the defaults are what the
+    executors use; other values serve the geometry sweep). Raises
+    ValueError for a DAG the kernel cannot run (unknown payload, table
+    overflow, shared memory over the block limit).
     """
     if h < 1 or w < 1:
         raise ValueError(f"frame shape must be positive, got ({h}, {w})")
@@ -147,18 +180,33 @@ def build_program(dag: PipelineDAG, h: int, w: int, rows_per_step: int,
     up, left = dag.cumulative_extent()
     strip_w = min(strip_w, w)
     ncols = strip_w + left
-    rings = smem_rings(dag, alloc_buffers, r)
-    ring_idx = {p: i for i, p in enumerate(rings)}
+    live = smem_rings(dag, alloc_buffers, r)
+    taps = smem_tap_rings(dag, r)
+    depths = dag.temporal_depths()
+    ring_rows: list[int] = []
+    ring_idx: dict = {}
+    for p, rows in live.items():
+        for j in range(depths.get(p, 1) - 1, 0, -1):
+            ring_idx[(p, j)] = len(ring_rows)
+            ring_rows.append(taps[(p, j)])
+        ring_idx[p] = len(ring_rows)
+        ring_rows.append(rows)
     feeds = tuple(dag.input_stages())
+    states = tuple(p for p in dag.topo_order if p in depths)
+    fouts = tuple(frame_outputs(dag))
     out_stage = dag.output_stages()[0]
     final = dag.in_edges(out_stage)[0].producer
-    stages = [n for n in dag.topo_order if not dag.stages[n].is_output]
-    if len(stages) > MAX_STAGES or len(rings) > MAX_RINGS \
-            or len(feeds) > MAX_FEEDS:
-        raise ValueError(f"{dag.name}: {len(stages)} stages / {len(rings)} "
-                         f"rings / {len(feeds)} inputs exceed the kernel's "
-                         f"{MAX_STAGES} / {MAX_RINGS} / {MAX_FEEDS}")
-    smem = sum(rings.values()) * ncols * 4
+    stages = list(temporal_taps(dag)) \
+        + [n for n in dag.topo_order if not dag.stages[n].is_output]
+    n_feeds = len(feeds) + len(states)
+    if len(stages) > MAX_STAGES or len(ring_rows) > MAX_RINGS \
+            or n_feeds > MAX_FEEDS or 1 + len(fouts) > MAX_OUTS:
+        raise ValueError(f"{dag.name}: {len(stages)} stages / "
+                         f"{len(ring_rows)} rings / {n_feeds} feeds / "
+                         f"{1 + len(fouts)} outputs exceed the kernel's "
+                         f"{MAX_STAGES} / {MAX_RINGS} / {MAX_FEEDS} / "
+                         f"{MAX_OUTS}")
+    smem = sum(ring_rows) * ncols * 4
     if smem > SMEM_LIMIT:
         raise ValueError(f"{dag.name}: rings need {smem} bytes of shared "
                          f"memory at R={r}, over the {SMEM_LIMIT}-byte "
@@ -167,63 +215,85 @@ def build_program(dag: PipelineDAG, h: int, w: int, rows_per_step: int,
     table = np.zeros(TABLE_INTS, np.int32)
     wts: list[float] = []
     for s, name in enumerate(stages):
-        st = dag.stages[name]
         row = table[HDR + s * STAGE_INTS: HDR + (s + 1) * STAGE_INTS]
         row[S_RING] = ring_idx.get(name, -1)
-        row[S_FINAL] = int(name == final)
+        row[S_FOUT] = 1 + fouts.index(name) if name in fouts else -1
         row[S_WOFF] = len(wts)
+        if isinstance(name, tuple):         # history tap (producer, j)
+            p, j = name
+            row[S_OP] = OPS.index("tap")
+            row[S_STATE] = len(feeds) + states.index(p)
+            # an internal producer's taps run one frame a launch, so they
+            # always read the state; any valid feed index serves
+            row[S_FEED] = feeds.index(p) if p in feeds else row[S_STATE]
+            row[S_TAPJ] = j
+            continue
+        st = dag.stages[name]
+        row[S_FINAL] = int(name == final)
         ins = dag.in_edges(name)
         if st.is_input:
             row[S_OP] = OPS.index("input")
             row[S_FEED] = feeds.index(name)
             continue
         if st.fn is None:      # relay: identity on the producer's pixel
-            op, srcs = "relay", [(ins[0].producer, 1, 1)]
+            op, srcs = "relay", [(ins[0].producer, 1, 1, 1)]
         else:
             op, srcs = _payload_operands(dag.name, name, st.fn, ins, wts)
         row[S_OP] = OPS.index(op)
         row[S_NSRC] = len(srcs)
-        for j, (p, sh, sw) in enumerate(srcs):
-            row[S_SRC + j], row[S_SH + j], row[S_SW + j] = \
-                ring_idx[p], sh, sw
+        for j, (p, t, sh, sw) in enumerate(srcs):
+            # time index dt reads ring first + dt; st - 1 is p's live ring
+            row[S_SRC + j] = ring_idx[p] - (t - 1)
+            row[S_ST + j], row[S_SH + j], row[S_SW + j] = t, sh, sw
     if len(wts) > MAX_WTS:
         raise ValueError(f"{dag.name}: {len(wts)} constants exceed the "
                          f"kernel's {MAX_WTS}")
     off = 0
     base = HDR + MAX_STAGES * STAGE_INTS
-    for i, rows in enumerate(rings.values()):
+    for i, rows in enumerate(ring_rows):
         table[base + 2 * i: base + 2 * i + 2] = (off, rows)
         off += rows * ncols
     grid_x = -(-w // strip_w)
     band_h = _band_height(h, grid_x, frames, up, r, target_ctas)
-    table[:H_SMEM_BYTES + 1] = (len(stages), r, h, w, strip_w, left, ncols,
-                                band_h, up, smem)
+    # temporal programs launch the kernel's temporal instantiation
+    table[:H_TEMPORAL + 1] = (len(stages), r, h, w, strip_w, left, ncols,
+                              band_h, up, smem, int(bool(states)))
     wt = np.zeros(MAX_WTS, np.float32)
     wt[:len(wts)] = wts
     return StencilProgram(dag=dag, h=h, w=w, rows_per_step=r, feeds=feeds,
+                          states=states, frame_outs=fouts,
                           table=table, wts=wt, strip_w=strip_w,
                           band_h=band_h, grid_x=grid_x,
                           grid_y=-(-h // band_h), smem_bytes=smem)
 
 
 def _payload_operands(pipeline: str, name: str, fn, ins, wts: list
-                      ) -> tuple[str, list[tuple[str, int, int]]]:
-    """(op, [(producer, sh, sw)] in operand order) for a payload stage;
-    appends the stage's weights and scalars to ``wts``."""
+                      ) -> tuple[str, list[tuple[str, int, int, int]]]:
+    """(op, [(producer, st, sh, sw)] in operand order) for a payload
+    stage; appends the stage's weights and scalars to ``wts``."""
     where = f"{pipeline}/{name}"
     if not isinstance(fn, Payload) or fn.op not in _ARITY:
         raise ValueError(f"{where}: payload {fn!r} has no kernel op")
     if len(ins) > MAX_SRC:
         raise ValueError(f"{where}: {len(ins)} inputs exceed {MAX_SRC}")
     order = fn.operands(window_keys(ins), ins)
-    srcs = [(ins[i].producer, ins[i].sh, ins[i].sw) for i in order]
+    srcs = [(ins[i].producer, ins[i].st, ins[i].sh, ins[i].sw)
+            for i in order]
     if len(srcs) != _ARITY[fn.op] or len(ins) != len(srcs):
         raise ValueError(f"{where}: {fn.op} reads {_ARITY[fn.op]} "
                          f"windows, the stage has {len(ins)}")
     if len(fn.consts) != _CONSTS.get(fn.op, 0):
         raise ValueError(f"{where}: {fn.op} takes {_CONSTS.get(fn.op, 0)} "
                          f"constants, got {len(fn.consts)}")
-    _, sh, sw = srcs[0]
+    _, st, sh, sw = srcs[0]
+    if fn.op not in _TEMPORAL_OPS and any(t > 1 for _, t, _, _ in srcs):
+        raise ValueError(f"{where}: {fn.op} takes no temporal window")
+    if fn.op == "frame_diff" and st < 2:
+        raise ValueError(f"{where}: frame_diff needs st >= 2, got {st}")
+    if fn.op == "stmean" and \
+            fn.consts[0] != float(np.float32(1.0 / (st * sh * sw))):
+        raise ValueError(f"{where}: stmean scale {fn.consts[0]} on a "
+                         f"{st}x{sh}x{sw} window")
     if fn.op == "conv" and fn.weights.shape != (sh, sw):
         raise ValueError(f"{where}: {fn.weights.shape} weights on a "
                          f"{sh}x{sw} window")
@@ -238,28 +308,35 @@ def _payload_operands(pipeline: str, name: str, fn, ins, wts: list
     return fn.op, srcs
 
 
-def _ops_per_pixel(op: str, sh: int, sw: int) -> int:
+def _ops_per_pixel(op: str, st: int, sh: int, sw: int) -> int:
     """float32 operations per output pixel of one stage: a k-tap sum is
     k products and k - 1 sums; mag is two products, two sums and a root;
-    nms is k - 1 maxima and a compare."""
+    nms is k - 1 maxima and a compare; a k-cell mean k - 1 sums and a
+    product."""
     k = sh * sw
     return {"conv": 2 * k - 1, "xcorr": 2 * sh, "nms": k, "mag": 5,
             "denoise_comb": 7, "unsharp": 3, "harris_resp": 3,
-            "square": 1, "prod": 1, "thresh": 1}.get(op, 0)
+            "square": 1, "prod": 1, "thresh": 1, "stmean": st * k,
+            "frame_diff": 2, "bg_subtract": 3}.get(op, 0)
 
 
 def launch_work(program: StencilProgram, frames: int) -> tuple[int, int]:
     """(bytes, float32 operations) a launch over ``frames`` frames needs
-    at least: each input and output pixel moved once, each stage's
-    arithmetic done once per pixel (no halo recompute)."""
-    pixels = frames * program.h * program.w
+    at least: each input, output and frame-output pixel moved once, each
+    history frame of the state read once, each stage's arithmetic done
+    once per pixel (no halo recompute)."""
+    hw = program.h * program.w
     n_stages = int(program.table[H_NSTAGES])
     ops = 0
     for s in range(n_stages):
         row = program.table[HDR + s * STAGE_INTS:]
-        ops += _ops_per_pixel(OPS[row[S_OP]], int(row[S_SH]),
-                              int(row[S_SW]))
-    return (len(program.feeds) + 1) * pixels * 4, ops * pixels
+        ops += _ops_per_pixel(OPS[row[S_OP]], int(row[S_ST]),
+                              int(row[S_SH]), int(row[S_SW]))
+    depths = program.dag.temporal_depths()
+    history = sum(depths[p] - 1 for p in program.states)
+    moved = (len(program.feeds) + 1 + len(program.frame_outs)) * frames \
+        + history
+    return moved * hw * 4, ops * frames * hw
 
 
 def stencil_pipeline_plain(dag: PipelineDAG,
@@ -268,6 +345,36 @@ def stencil_pipeline_plain(dag: PipelineDAG,
     dims), stage by stage, through the same payloads. The row-group walk
     does not change the math, so it equals the kernel at every R."""
     return execute_reference(dag, feeds)[dag.output_stages()[0]]
+
+
+def video_pipeline_plain(dag: PipelineDAG, feeds: Mapping
+                         ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """The kernel's plain PyTorch version for any DAG, temporal ones
+    included: ``feeds`` holds each input stage and each history tap
+    (keyed ``codegen.tap_name(p, j)``) as (B, h, w) frames, frame b's tap
+    j being producer p's frame j steps before frame b. Returns the
+    output and {internal temporal producer: its frames}."""
+    vals = run_stages(dag, feeds, lambda p, j: torch.as_tensor(
+        feeds[tap_name(p, j)], dtype=torch.float32))
+    return (vals[dag.output_stages()[0]],
+            {p: vals[p] for p in frame_outputs(dag)})
+
+
+def tap_feeds(dag: PipelineDAG, inputs: Mapping[str, torch.Tensor],
+              state: Mapping[str, torch.Tensor], frames: int
+              ) -> dict[str, torch.Tensor]:
+    """History taps of a launch over ``frames`` consecutive frames, as
+    the plain version reads them: tap j of frame b is input frame b - j
+    when b >= j, else slot j - b - 1 of the producer's frame-ring state
+    (newest first). Built by concatenation — one copy per tap; the
+    kernel reads the same frames in place."""
+    taps = {}
+    for (p, j) in temporal_taps(dag):
+        parts = [state[p][:j].flip(0)]
+        if p in inputs:
+            parts.append(inputs[p])
+        taps[tap_name(p, j)] = torch.cat(parts)[:frames]
+    return taps
 
 
 def _lib() -> ctypes.CDLL:
@@ -280,7 +387,7 @@ def _lib() -> ctypes.CDLL:
         lib.stencil_pipeline_error_string.argtypes = [ctypes.c_int]
         lib.stencil_pipeline_error_string.restype = ctypes.c_char_p
         lib.stencil_pipeline_blocks_per_sm.argtypes = [
-            ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+            ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     return lib
 
 
@@ -295,20 +402,24 @@ def blocks_per_sm(program: StencilProgram) -> int:
     memory (the CUDA occupancy calculator; needs the card)."""
     lib = _lib()
     n = ctypes.c_int(0)
-    _check(lib, lib.stencil_pipeline_blocks_per_sm(program.smem_bytes,
-                                                   ctypes.byref(n)),
-           "occupancy query")
+    temporal = int(program.table[H_TEMPORAL])
+    _check(lib, lib.stencil_pipeline_blocks_per_sm(
+        program.smem_bytes, temporal, ctypes.byref(n)), "occupancy query")
     return n.value
 
 
 class StencilPipelineKernel:
     """Wrapper of the fused stencil kernel.
 
-    ``self(program, feeds)`` runs ``program`` over ``feeds`` — one
-    (B, h, w) float32 contiguous tensor per input stage, all on one
-    device — and returns the (B, h, w) output. CPU tensors take the plain
-    version; CUDA tensors launch the kernel on the current stream, and
-    ``launches`` counts those launches.
+    ``self(program, feeds, states)`` runs ``program`` over ``feeds`` —
+    one (B, h, w) float32 contiguous tensor per input stage — and
+    ``states`` — one (d-1, h, w) frame ring per temporal producer
+    (``program.states``, newest frame first), all on one device. It
+    returns the (B, h, w) output, or ``(output, {producer: (B, h, w)})``
+    when the program has frame outputs (internal temporal producers;
+    then B must be 1). CPU tensors take the plain version; CUDA tensors
+    launch the kernel on the current stream, and ``launches`` counts
+    those launches.
     """
     name = "stencil_pipeline"
 
@@ -316,17 +427,25 @@ class StencilPipelineKernel:
         self.launches = 0
 
     def __call__(self, program: StencilProgram,
-                 feeds: Sequence[torch.Tensor]) -> torch.Tensor:
-        if len(feeds) != len(program.feeds):
-            raise ValueError(f"{program.dag.name} takes {len(program.feeds)}"
-                             f" inputs {program.feeds}, got {len(feeds)}")
-        devices = {t.device for t in feeds}
+                 feeds: Sequence[torch.Tensor],
+                 states: Sequence[torch.Tensor] = ()):
+        dag = program.dag
+        if len(feeds) != len(program.feeds) or \
+                len(states) != len(program.states):
+            raise ValueError(f"{dag.name} takes {len(program.feeds)} "
+                             f"inputs {program.feeds} and "
+                             f"{len(program.states)} states "
+                             f"{program.states}, got {len(feeds)} and "
+                             f"{len(states)}")
+        devices = {t.device for t in (*feeds, *states)}
         if len(devices) != 1:
             raise ValueError(f"inputs span devices {sorted(map(str, devices))}")
         dev = devices.pop()
         b = feeds[0].shape[0]
-        want = (b, program.h, program.w)
-        for t in feeds:
+        depths = dag.temporal_depths()
+        wants = [(b, program.h, program.w)] * len(feeds) + [
+            (depths[p] - 1, program.h, program.w) for p in program.states]
+        for t, want in zip((*feeds, *states), wants):
             if t.dtype != torch.float32:
                 raise TypeError(f"inputs must be float32, got {t.dtype}")
             if tuple(t.shape) != want or b < 1:
@@ -334,24 +453,39 @@ class StencilPipelineKernel:
                                  f"{tuple(t.shape)}")
             if not t.is_contiguous():
                 raise ValueError("inputs must be contiguous")
+        if program.frame_outs and b != 1:
+            raise ValueError(
+                f"{dag.name}: a launch over {b} frames needs input-only "
+                f"temporal taps, but {list(program.frame_outs)} are "
+                f"internal temporal producers (frame t would need frame "
+                f"t-1 from the same launch)")
         if dev.type == "cpu":
-            return stencil_pipeline_plain(program.dag,
-                                          dict(zip(program.feeds, feeds)))
+            inputs = dict(zip(program.feeds, feeds))
+            out, frames = video_pipeline_plain(dag, {
+                **inputs, **tap_feeds(dag, inputs,
+                                      dict(zip(program.states, states)), b)})
+            return (out, frames) if program.frame_outs else out
         if dev.type != "cuda":
             raise ValueError(f"unsupported device {dev}")
         if b > 65535:
             raise ValueError(f"batch {b} exceeds the grid's 65535 frames")
         lib = _lib()
-        out = torch.empty(want, dtype=torch.float32, device=dev)
-        ptrs = (ctypes.c_void_p * MAX_FEEDS)(*[t.data_ptr() for t in feeds])
+        outs = [torch.empty((b, program.h, program.w), dtype=torch.float32,
+                            device=dev)
+                for _ in range(1 + len(program.frame_outs))]
+        fptrs = (ctypes.c_void_p * MAX_FEEDS)(
+            *[t.data_ptr() for t in (*feeds, *states)])
+        optrs = (ctypes.c_void_p * MAX_OUTS)(*[t.data_ptr() for t in outs])
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = lib.stencil_pipeline_launch(
-                program.table.ctypes.data, program.wts.ctypes.data, ptrs,
-                out.data_ptr(), program.grid_x, program.grid_y, b, stream)
+                program.table.ctypes.data, program.wts.ctypes.data, fptrs,
+                optrs, program.grid_x, program.grid_y, b, stream)
         _check(lib, rc, "launch")
         self.launches += 1
-        return out
+        if program.frame_outs:
+            return outs[0], dict(zip(program.frame_outs, outs[1:]))
+        return outs[0]
 
 
 stencil_pipeline = StencilPipelineKernel()
@@ -427,8 +561,8 @@ def make_executor(dag: PipelineDAG, h: int, w: int,
     (1 when no plan). Runs on the GPU unless ``device="cpu"``.
     """
     if dag.is_temporal():
-        raise ValueError(f"{dag.name} reads frame history; the video "
-                         f"executor is not ported yet")
+        raise ValueError(f"{dag.name} reads frame history; build it with "
+                         f"make_video_executor")
     r = _resolve_rows(rows_per_step, plan)
     d = _resolve_depth(prefetch_depth, plan)
     if d != 1:
@@ -441,3 +575,139 @@ def make_executor(dag: PipelineDAG, h: int, w: int,
     return StencilExecutor(dag=dag, h=h, w=w, batch=batch, rows_per_step=r,
                            prefetch_depth=d, smem_bytes=prog.smem_bytes,
                            device=dev, plan=plan, program=prog)
+
+
+def init_frame_state(depths: Mapping[str, int], h: int, w: int,
+                     device: str | torch.device = "cuda"
+                     ) -> dict[str, torch.Tensor]:
+    """Zero frame rings for a fresh stream: one (d-1, h, w) float32 ring
+    per temporal producer, newest frame first along axis 0, on
+    ``device``. The single definition of the state layout (the JAX
+    package's, so states compare one to one)."""
+    dev = resolve_device(device)
+    return {p: torch.zeros((d - 1, h, w), dtype=torch.float32, device=dev)
+            for p, d in depths.items()}
+
+
+@dataclasses.dataclass(frozen=True)
+class VideoExecutor:
+    """A frame-stream executor — stateless across streams.
+
+    The temporal analogue of :class:`StencilExecutor`: one stage table
+    serves every stream of the pipeline; all per-stream state — the frame
+    rings holding each temporal producer's last ``d-1`` frames — is an
+    explicit argument and result of ``__call__``, so N concurrent streams
+    multiplex over ONE executor without cross-talk.
+
+    ``chunk=None`` advances one frame per call ({input: (h, w)} ->
+    (h, w)); ``chunk=B`` advances B *consecutive* frames of one stream
+    per call ({input: (B, h, w)} -> (B, h, w)) in one launch — frame b's
+    history taps are read from earlier frames of the chunk itself, which
+    is why chunking requires input-only temporal taps (enforced at
+    construction).
+
+    ``__call__`` never mutates the ``state`` it is given: it returns a
+    new state, so a caller commits state only on success. The roll
+    copies each producer's d-1 frames once (``state_roll_bytes`` read and
+    written per call).
+    """
+    dag: PipelineDAG
+    h: int
+    w: int
+    chunk: int | None
+    rows_per_step: int
+    prefetch_depth: int
+    smem_bytes: int                 # shared memory per CTA (rings)
+    frame_state_bytes: int          # device-resident frame-ring state
+    device: torch.device
+    depths: dict = dataclasses.field(repr=False)   # producer -> frames
+    plan: PipelinePlan | None = dataclasses.field(repr=False, default=None)
+    program: StencilProgram = dataclasses.field(repr=False, kw_only=True)
+
+    def init_state(self) -> dict[str, torch.Tensor]:
+        """Zero frame rings — the stream-start (warm-up) state. Frames
+        read from the zero region reproduce the reference's causal zero
+        padding along time."""
+        return init_frame_state(self.depths, self.h, self.w, self.device)
+
+    def _feed(self, x) -> torch.Tensor:
+        t = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        want = (self.h, self.w) if self.chunk is None \
+            else (self.chunk, self.h, self.w)
+        if tuple(t.shape) != want:
+            raise ValueError(f"{self.dag.name}: input of shape "
+                             f"{tuple(t.shape)}, executor takes {want}")
+        return t.reshape(-1, self.h, self.w).contiguous()
+
+    def __call__(self, images: Mapping, state: Mapping
+                 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+        with trace.span("executor.call", profile=True,
+                        pipeline=self.dag.name, chunk=self.chunk,
+                        rows_per_step=self.rows_per_step):
+            prog = self.program
+            ins = {n: self._feed(images[n]) for n in prog.feeds}
+            rings = {p: torch.as_tensor(state[p], dtype=torch.float32,
+                                        device=self.device).contiguous()
+                     for p in prog.states}
+            res = stencil_pipeline(prog, [ins[n] for n in prog.feeds],
+                                   [rings[p] for p in prog.states])
+            out, frames = res if prog.frame_outs else (res, {})
+            new_state = {}
+            for p, d in self.depths.items():
+                # newest first: the launch's frames, last one first, then
+                # the oldest state frames that still fit
+                cur = ins[p] if p in ins else frames[p]
+                n = min(cur.shape[0], d - 1)
+                new_state[p] = torch.cat(
+                    [cur[cur.shape[0] - 1 - i][None] for i in range(n)]
+                    + [rings[p][:d - 1 - n]])
+            return (out if self.chunk is not None else out[0]), new_state
+
+    @property
+    def state_roll_bytes(self) -> int:
+        """Device bytes the state roll reads and writes per call."""
+        return 2 * self.frame_state_bytes
+
+    @property
+    def warmup_frames(self) -> int:
+        """Frames before the output stops depending on the zero history."""
+        return self.dag.cumulative_extent(temporal=True)[0]
+
+
+def make_video_executor(dag: PipelineDAG, h: int, w: int,
+                        plan: PipelinePlan | None = None,
+                        rows_per_step: int | None = None,
+                        chunk: int | None = None,
+                        prefetch_depth: int | None = None,
+                        device: str | torch.device = "cuda"
+                        ) -> VideoExecutor:
+    """Build a streaming executor for a (possibly temporal) pipeline.
+
+    History taps are read from the caller's state (single-frame mode) or
+    from earlier frames of the chunk and the state (chunk mode), and the
+    returned state rolls the newest frames in. A DAG with no temporal
+    edges degenerates to the plain executor with empty state. Runs on
+    the GPU unless ``device="cpu"``.
+    """
+    r = _resolve_rows(rows_per_step, plan)
+    d = _resolve_depth(prefetch_depth, plan)
+    if d != 1:
+        raise ValueError(f"prefetch_depth={d}: only depth 1 is ported")
+    if chunk is not None and chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    internal = frame_outputs(dag)
+    if chunk is not None and internal:
+        raise ValueError(
+            f"{dag.name}: chunked execution needs input-only temporal "
+            f"taps, but {internal} are internal temporal producers (frame "
+            f"t would need frame t-1 from the same launch)")
+    dev = resolve_device(device)
+    depths = dag.temporal_depths()
+    prog = build_program(dag, h, w, r, frames=chunk or 1,
+                         alloc_buffers=plan.alloc.buffers if plan else None)
+    state_bytes = plan.vmem_frame_bytes(h) if plan is not None \
+        else sum((k - 1) * h * w * 4 for k in depths.values())
+    return VideoExecutor(dag=dag, h=h, w=w, chunk=chunk, rows_per_step=r,
+                         prefetch_depth=d, smem_bytes=prog.smem_bytes,
+                         frame_state_bytes=state_bytes, device=dev,
+                         depths=dict(depths), plan=plan, program=prog)

@@ -1,0 +1,77 @@
+"""Time the spatial stencil kernel (K1a/K1b) of a source tree on the card.
+
+    PYTHONPATH=<tree>/src python3 src/repro_torch/perf/kernel_times.py \
+        [--tag NAME] [--iters 20]
+
+Runs as a file, so ``repro_torch`` is imported from whichever tree
+``PYTHONPATH`` names: one call can time two commits of the kernel on one
+card (unpack the other commit with ``git archive`` and run parent,
+change, change, parent). For each of the seven spatial pipelines at
+1080p, R=8 and a batch of four frames, at the executors' default launch
+geometry, prints one JSON line with the mean time of one launch (CUDA
+events over ``--iters`` launches after two warm-up launches) and a hash
+of the output, so two trees can also be checked for equal pixels. Uses
+only ``build_program`` and the wrapper, whose signatures every tree of
+the port shares. Needs an NVIDIA GPU; the card's name and power limit
+come first.
+"""
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import subprocess
+
+import numpy as np
+import torch
+
+from repro_torch.core import algorithms
+from repro_torch.core.codegen import compile_pipeline
+from repro_torch.kernels import stencil_pipeline as sp
+
+H, W, R, B = 1080, 1920, 8, 4
+
+
+def _ms(fn, iters: int) -> float:
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tag", default="tree")
+    ap.add_argument("--iters", type=int, default=20)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_times: no CUDA device")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(json.dumps({"tag": args.tag, "nvidia_smi": smi}), flush=True)
+    x = torch.from_numpy(np.random.RandomState(0).rand(B, H, W)
+                         .astype(np.float32)).cuda()
+    for name in sorted(algorithms.ALGORITHMS):
+        dag = algorithms.ALGORITHMS[name]()
+        plan = compile_pipeline(dag, W)
+        prog = sp.build_program(dag, H, W, R, frames=B,
+                                alloc_buffers=plan.alloc.buffers)
+        out = sp.stencil_pipeline(prog, [x])
+        digest = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
+        print(json.dumps({
+            "tag": args.tag, "pipeline": name, "frames": B,
+            "smem_bytes": prog.smem_bytes,
+            "ms": _ms(lambda: sp.stencil_pipeline(prog, [x]), args.iters),
+            "output_sha256": digest[:16]}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

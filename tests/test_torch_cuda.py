@@ -15,11 +15,23 @@ import pytest
 import torch
 
 from repro_torch.core import algorithms
+from repro_torch.core.dsl import Pipeline
 from repro_torch.imaging import FrameEngine, FrameRequest, PlanCache, \
     execute_tiled
 from repro_torch.kernels import stencil_pipeline as sp
+from repro_torch.video import VideoEngine
 
 NAMES = sorted(algorithms.ALGORITHMS)
+VIDEO = sorted(algorithms.VIDEO_ALGORITHMS)
+
+
+def _tinternal():
+    p = Pipeline("tinternal")
+    x = p.input("in")
+    b = p.stage("blur", [(x, 3, 3)], algorithms.conv_fn(algorithms.G3))
+    d = p.stage("diff", [(b, 2, 1, 1)], algorithms.frame_diff_fn)
+    p.output("out", [(d, 1, 1)])
+    return p.build()
 
 
 @pytest.fixture
@@ -75,3 +87,52 @@ def test_tiled_matches_plain_on_card(cuda_device):
     got = execute_tiled(cache, "canny-m", {"in": img}, 40, 48, batch=4)
     exp = sp.stencil_pipeline_plain(cache.dag_for("canny-m"), {"in": img})
     assert torch.equal(got, exp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [1, 8])
+@pytest.mark.parametrize("name,chunk", [(n, c) for n in VIDEO
+                                        for c in (None, 4)]
+                         + [("tinternal", None)])
+def test_temporal_kernel_matches_plain_bitwise(cuda_device, name, chunk, r):
+    """K1c: a 12-frame stream from a zero state, output and every
+    returned state equal to the plain version's on the same state
+    (internal temporal producers run one frame a launch)."""
+    dag = _tinternal() if name == "tinternal" \
+        else algorithms.VIDEO_ALGORITHMS[name]()
+    h, w = 37, 53
+    vid = torch.from_numpy(_frames(4, 12, h, w)).to(cuda_device)
+    ex = sp.make_video_executor(dag, h, w, rows_per_step=r, chunk=chunk,
+                                device=cuda_device)
+    state = ex.init_state()
+    step = chunk or 1
+    for t in range(0, 12, step):
+        x = vid[t:t + step] if chunk else vid[t]
+        before = sp.stencil_pipeline.launches
+        got, new = ex({"in": x}, state)
+        torch.cuda.synchronize()
+        assert sp.stencil_pipeline.launches == before + 1
+        inputs = {"in": x.reshape(-1, h, w)}
+        exp, frames = sp.video_pipeline_plain(dag, {
+            **inputs, **sp.tap_feeds(dag, inputs, state, step)})
+        assert torch.equal(got.reshape(-1, h, w), exp)
+        for p in ex.program.frame_outs:
+            assert torch.equal(new[p][0], frames[p][0])
+        state = new
+    assert all(v.device.type == "cuda" for v in state.values())
+
+
+@pytest.mark.cuda
+def test_video_engine_serves_through_the_kernel(cuda_device):
+    eng = VideoEngine(chunk=4, device=cuda_device)
+    h, w = 40, 56
+    vid = _frames(6, 10, h, w)
+    sid = eng.open_stream("tbackground-t", h, w)
+    before = sp.stencil_pipeline.launches
+    res = eng.run({sid: [{"in": f} for f in vid]})
+    assert sp.stencil_pipeline.launches > before
+    exp = algorithms.execute_reference_video(
+        eng.cache.dag_for("tbackground-t"),
+        {"in": torch.from_numpy(vid).to(cuda_device)})
+    got = torch.stack(res[sid])
+    assert got.device.type == "cuda" and torch.equal(got, exp)

@@ -197,17 +197,30 @@ def test_cuda_engine_refuses_to_run_without_a_card():
 
 
 def test_port_runs_without_jax_or_reference_package():
-    """A fresh process that imports repro_torch and serves frames ends
-    with neither jax nor the reference package in sys.modules."""
+    """A fresh process that imports every repro_torch module, serves
+    frames, serves a video stream through the tuned rung and runs the
+    baselines ends with neither jax nor the reference package in
+    sys.modules."""
     code = textwrap.dedent("""
-        import sys
+        import pkgutil, importlib, sys
         import numpy as np
+        import repro_torch
+        for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+            importlib.import_module(m.name)
+        from repro_torch.core import algorithms, baselines
         from repro_torch.imaging import FrameEngine, FrameRequest
+        from repro_torch.video import VideoEngine
         eng = FrameEngine(device="cpu", max_batch=2, tile_shape=(16, 16))
         img = np.random.RandomState(0).rand(24, 40).astype(np.float32)
         res = eng.run([FrameRequest(rid=0, pipeline="canny-m",
                                     frames={"in": img})])
         assert res[0].shape == (24, 40)
+        veng = VideoEngine(device="cpu", chunk=2, autotune=True)
+        sid = veng.open_stream("tmotion-t", 12, 16)
+        vid = np.random.RandomState(1).rand(4, 12, 16).astype(np.float32)
+        out = veng.run({sid: [{"in": f} for f in vid]})
+        assert len(out[sid]) == 4 and out[sid][0].shape == (12, 16)
+        baselines.fixynn_schedule(algorithms.tbackground_t(), 16)
         bad = sorted(k for k in sys.modules
                      if k.split(".")[0] in ("jax", "jaxlib", "repro"))
         print("LEAKED", bad)

@@ -8,7 +8,9 @@ compiler under a small shim: one thread per block (``blockDim`` 1), so
 operations under ``-ffp-contract=off``. Every CTA of a launch runs in
 turn, its shared memory filled with NaN first, so a read of a ring row
 the CTA never wrote shows in the output. The result must equal
-``stencil_pipeline_plain`` bitwise, as the kernel must on the card.
+``stencil_pipeline_plain`` bitwise (``video_pipeline_plain`` for a
+temporal pipeline, over random frame-ring states), as the kernel must
+on the card.
 
 This checks the kernel's index math, rings, halos, masks and operand
 table at launch geometries the card's tests do not reach; the threads
@@ -24,10 +26,22 @@ import pytest
 import torch
 
 from repro_torch.core import algorithms, compile_pipeline
+from repro_torch.core.dsl import Pipeline
 from repro_torch.kernels import stencil_pipeline as sp
 from repro_torch.kernels._build import CSRC
 
 NAMES = sorted(algorithms.ALGORITHMS)
+VIDEO = sorted(algorithms.VIDEO_ALGORITHMS)
+
+
+def _tinternal():
+    """A temporal tap on a computed stage (a frame output)."""
+    p = Pipeline("tinternal")
+    x = p.input("in")
+    b = p.stage("blur", [(x, 3, 3)], algorithms.conv_fn(algorithms.G3))
+    d = p.stage("diff", [(b, 2, 1, 1)], algorithms.frame_diff_fn)
+    p.output("out", [(d, 1, 1)])
+    return p.build()
 
 _SHIM = r"""
 #include <algorithm>
@@ -54,7 +68,7 @@ static float __fsqrt_rn(float a) { return std::sqrt(a); }
 
 _LAUNCHER = r"""
 extern "C" void host_launch(const int* table, const float* wts,
-                            const void* const* feeds, void* out,
+                            const void* const* feeds, void* const* outs,
                             int gx, int gy, int gz) {
   Program P;
   memcpy(P.hdr, table, sizeof(P.hdr));
@@ -64,6 +78,8 @@ extern "C" void host_launch(const int* table, const float* wts,
   Feeds F;
   for (int i = 0; i < kMaxFeeds; ++i)
     F.p[i] = static_cast<const float*>(feeds[i]);
+  Outs O;
+  for (int i = 0; i < kMaxOuts; ++i) O.p[i] = static_cast<float*>(outs[i]);
   std::vector<float> sm(P.hdr[H_SMEM_BYTES] / 4 + 1);
   g_smem = sm.data();
   for (int z = 0; z < gz; ++z)
@@ -71,7 +87,10 @@ extern "C" void host_launch(const int* table, const float* wts,
       for (int x = 0; x < gx; ++x) {
         std::fill(sm.begin(), sm.end(), NAN);
         blockIdx = Dim3{x, y, z};
-        stencil_pipeline_kernel(P, F, static_cast<float*>(out));
+        if (P.hdr[H_TEMPORAL])
+          stencil_pipeline_kernel<true>(P, F, O);
+        else
+          stencil_pipeline_kernel<false>(P, F, O);
       }
 }
 """
@@ -96,13 +115,20 @@ def host_kernel(tmp_path_factory):
     lib.host_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
     lib.host_launch.restype = None
 
-    def launch(prog, x):
-        out = np.full(x.shape, np.float32(-7.0))
-        feeds = (ctypes.c_void_p * sp.MAX_FEEDS)(x.ctypes.data)
+    def launch(prog, x, states=()):
+        """Output (and frame outputs, if any) of ``prog`` over input
+        frames ``x`` and frame-ring ``states``."""
+        outs = [np.full(x.shape, np.float32(-7.0))
+                for _ in range(1 + len(prog.frame_outs))]
+        feeds = (ctypes.c_void_p * sp.MAX_FEEDS)(
+            *[a.ctypes.data for a in (x, *states)])
+        optrs = (ctypes.c_void_p * sp.MAX_OUTS)(
+            *[a.ctypes.data for a in outs])
         lib.host_launch(prog.table.ctypes.data, prog.wts.ctypes.data, feeds,
-                        out.ctypes.data, prog.grid_x, prog.grid_y,
-                        x.shape[0])
-        return out
+                        optrs, prog.grid_x, prog.grid_y, x.shape[0])
+        if prog.frame_outs:
+            return outs[0], dict(zip(prog.frame_outs, outs[1:]))
+        return outs[0]
     return launch
 
 
@@ -128,3 +154,45 @@ def test_host_compiled_kernel_matches_plain(host_kernel, name, strip_w,
             got = host_kernel(prog, x)
             assert np.array_equal(got, exp.numpy()), \
                 (name, (h, w), r, strip_w, target_ctas, prog.band_h)
+
+
+@pytest.mark.parametrize("strip_w,target_ctas", [
+    (sp.STRIP_W, sp.TARGET_CTAS),   # the executors' geometry
+    (7, 1),                         # strips narrower than the halo
+])
+@pytest.mark.parametrize("name", VIDEO + ["tinternal"])
+def test_host_compiled_temporal_kernel_matches_plain(host_kernel, name,
+                                                     strip_w, target_ctas):
+    """History taps read from the launch's own earlier frames and from
+    random frame-ring states, and frame outputs, equal the plain
+    version bitwise."""
+    dag = _tinternal() if name == "tinternal" \
+        else algorithms.VIDEO_ALGORITHMS[name]()
+    depths = dag.temporal_depths()
+    rng = np.random.RandomState(5)
+    batches = (1,) if name == "tinternal" else (1, 4)
+    for h, w in [(13, 24), (37, 53)]:
+        plan = compile_pipeline(dag, w)
+        for r in (1, 3, 8):
+            for b in batches:
+                x = rng.rand(b, h, w).astype(np.float32)
+                states = [rng.rand(depths[p] - 1, h, w).astype(np.float32)
+                          for p in sorted(depths,
+                                          key=dag.topo_order.index)]
+                prog = sp.build_program(dag, h, w, r, frames=b,
+                                        alloc_buffers=plan.alloc.buffers,
+                                        strip_w=strip_w,
+                                        target_ctas=target_ctas)
+                inputs = {"in": torch.from_numpy(x)}
+                ring = {p: torch.from_numpy(a)
+                        for p, a in zip(prog.states, states)}
+                out, frames = sp.video_pipeline_plain(
+                    dag, {**inputs, **sp.tap_feeds(dag, inputs, ring, b)})
+                got = host_kernel(prog, x, states)
+                where = (name, (h, w), r, b, strip_w, target_ctas)
+                if prog.frame_outs:
+                    got, got_frames = got
+                    for p in prog.frame_outs:
+                        assert np.array_equal(got_frames[p],
+                                              frames[p].numpy()), where
+                assert np.array_equal(got, out.numpy()), where
