@@ -34,13 +34,35 @@ inputs. Each phase prints one JSON line:
   7. tuned   — the autotuned rung: VideoEngine(autotune=True) on the 4
                video pipelines and FrameEngine(autotune=True) on
                unsharp-m at 1080p, against the plain version;
-  8. kernels — one line per kernel path: route, source, launches, error
+  8. depth   — prefetch depth 2 and 4 (staging rings filled by
+               asynchronous copies, poisoned with NaN first): the 7
+               spatial pipelines at 1080p B=4 and three odd shapes, and
+               canny-m tiled, against depth 1 and the plain version; the
+               4 video pipelines in chunks of 4 and an internal temporal
+               producer, 12-frame streams, output and state at every
+               step; FrameEngine and VideoEngine serving at depth 2; then
+               per-pipeline kernel times at depth 1, 2 and 4 with shared
+               memory per CTA and CTAs per SM;
+  9. conv2d  — the conv2d kernel through ``kernels.ops.conv2d`` on a
+               1080p frame with 3x3 and 5x5 filters and the JAX package's
+               sweep shapes, against ``conv2d_plain``; kernel / plain /
+               bound / ``F.conv2d`` times at 1080p;
+ 10. swa_decode — the swa_decode kernel through ``kernels.ops.swa_decode``
+               at gemma3-1b's local-attention shape (Hq=4, Hkv=1, D=256,
+               window 512) and a decode batch of 64, an empty and wrapped
+               rings among the rows, and the JAX package's sweep shapes,
+               against ``swa_decode_plain``; kernel / plain / bound / SDPA
+               times;
+ 11. kernels — one line per kernel path: route, source, launches, error
                and times.
 
-Tolerance: bitwise (0 ULP). The kernel rounds every product and sum on
-its own in the plain version's order (``_rn`` intrinsics, ``-fmad=false``)
-and both take correctly rounded square roots. Then the card's name and
-power limit as nvidia-smi prints them, and last the device JSON line.
+Tolerance: bitwise (0 ULP) for the stencil kernel at every depth and for
+conv2d. They round every product and sum on their own in the plain
+version's order (``_rn`` intrinsics, ``-fmad=false``) and take correctly
+rounded square roots. swa_decode sums its dot products in another order
+than the plain version: rtol 2e-4, atol 2e-5 (``kernels/swa_decode.py``).
+Then the card's name and power limit as nvidia-smi prints them, and last
+the device JSON line.
 
 Imports nothing of JAX or of the reference package. Exits non-zero, with
 no result line, when there is no CUDA device or a phase fails.
@@ -69,6 +91,17 @@ VIDEO_SHAPES = [(13, 24), (37, 53), (320, 480), (1080, 1920)]
 VIDEO_T, VIDEO_CHUNK = 24, 4
 STREAMS_PER_PIPELINE, STREAM_FRAMES = 2, 16
 TUNED_FRAMES = 8
+DEPTHS = (2, 4)
+DEPTH_SHAPES = [(21, 130), (5, 257), (37, 53), (1080, 1920)]
+DEPTH_VIDEO_SHAPES = [(37, 53), (1080, 1920)]
+DEPTH_T = 12
+CONV_FILTERS = [(3, 3), (5, 5)]
+CONV_SWEEP = ([(8, 16), (20, 24), (13, 130), (9, 257)],
+              [(1, 1), (3, 3), (1, 5), (5, 1), (2, 4)])
+# gemma3-1b local attention (src/repro/configs/gemma3_1b.py): Hq=4, Hkv=1,
+# head_dim 256, sliding window 512; a decode batch of 64
+SWA_SHAPE = (64, 4, 1, 256, 512)                 # B, Hq, Hkv, D, S
+SWA_SWEEP = [(1, 4, 4, 32, 16), (2, 8, 2, 64, 32), (3, 8, 1, 16, 64)]
 
 
 def emit(phase: str, **fields) -> None:
@@ -384,6 +417,339 @@ def tuned_phase(dev) -> float:
     return max_ulp
 
 
+def depth_phase(dev, mem_rate: float, flop_rate: float, sms: int) -> dict:
+    """Phase 8: the prefetch instantiations (K1d). Returns the kernels-
+    line entry."""
+    from repro_torch.core import algorithms
+    from repro_torch.core.codegen import compile_pipeline
+    from repro_torch.imaging import FrameEngine, FrameRequest, PlanCache
+    from repro_torch.imaging.tiling import execute_tiled
+    from repro_torch.kernels import stencil_pipeline as sp
+    from repro_torch.video import VideoEngine, VideoFrame
+    names = sorted(algorithms.ALGORITHMS)
+    vnames = sorted(algorithms.VIDEO_ALGORITHMS)
+    max_err, max_ulp, cases = 0.0, 0.0, 0
+
+    def check(got, exp, where):
+        nonlocal max_err, max_ulp
+        err, ulp = ulp_err(got, exp)
+        if ulp > TOLERANCE_ULP:
+            fail(f"{where}: differs by {ulp} ULP (abs {err})")
+        max_err, max_ulp = max(max_err, err), max(max_ulp, ulp)
+
+    # spatial: depth d against depth 1 and plain, staging poisoned
+    for name in names:
+        dag = algorithms.ALGORITHMS[name]()
+        for h, w in DEPTH_SHAPES:
+            plan = compile_pipeline(dag, w)
+            for batch in (1, SERVE_B):
+                x = torch.from_numpy(frames(8000 + cases, batch, h, w)).to(dev)
+                if batch > 1:
+                    x[-1] = 0.0                           # idle slot
+                bufs = plan.alloc.buffers
+                base = sp.stencil_pipeline(sp.build_program(
+                    dag, h, w, SERVE_R, frames=batch, alloc_buffers=bufs),
+                    [x])
+                plain = sp.stencil_pipeline_plain(dag, {"in": x})
+                check(base, plain, f"{name} {h}x{w} depth 1")
+                for d in DEPTHS:
+                    prog = sp.build_program(dag, h, w, SERVE_R, frames=batch,
+                                            alloc_buffers=bufs,
+                                            prefetch_depth=d,
+                                            poison_staging=True)
+                    before = sp.stencil_pipeline.prefetch_launches
+                    got = sp.stencil_pipeline(prog, [x])
+                    torch.cuda.synchronize()
+                    if sp.stencil_pipeline.prefetch_launches != before + 1:
+                        fail(f"{name}: the prefetch kernel did not launch")
+                    where = f"{name} {h}x{w} B={batch} depth {d}"
+                    check(got, base, where + " vs depth 1")
+                    check(got, plain, where + " vs plain")
+                    cases += 1
+    cache = PlanCache(device=dev)
+    img = torch.from_numpy(frames(8500, 1, SERVE_H, SERVE_W)[0]).to(dev)
+    tiled_exp = sp.stencil_pipeline_plain(cache.dag_for("canny-m"),
+                                          {"in": img})
+    check(execute_tiled(cache, "canny-m", {"in": img}, *TILE,
+                        batch=SERVE_B, rows_per_step=SERVE_R,
+                        prefetch_depth=2), tiled_exp, "canny-m tiled depth 2")
+
+    # temporal: chunked streams (one-frame steps for tinternal), output
+    # and state at every step against depth 1 and plain
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    for dag in [algorithms.VIDEO_ALGORITHMS[n]() for n in vnames] \
+            + [tinternal()]:
+        chunk = None if dag.name == "tinternal" else VIDEO_CHUNK
+        step = chunk or 1
+        for h, w in DEPTH_VIDEO_SHAPES:
+            plan = compile_pipeline(dag, w)
+            vid = torch.rand((DEPTH_T, h, w), generator=gen, device=dev)
+            for d in DEPTHS:
+                ex1, exd = (sp.make_video_executor(
+                    dag, h, w, plan=plan, rows_per_step=SERVE_R, chunk=chunk,
+                    prefetch_depth=k, device=dev) for k in (1, d))
+                s1 = sd = ex1.init_state()
+                for t in range(0, DEPTH_T, step):
+                    x = vid[t:t + step]
+                    feed = {"in": x if chunk else x[0]}
+                    got, new_d = exd(feed, sd)
+                    exp, new_1 = ex1(feed, s1)
+                    torch.cuda.synchronize()
+                    plain, _ = sp.video_pipeline_plain(dag, {
+                        "in": x, **sp.tap_feeds(dag, {"in": x}, sd, step)})
+                    where = f"{dag.name} {h}x{w} depth {d} t={t}"
+                    check(got.reshape(-1, h, w), plain, where + " vs plain")
+                    check(got, exp, where + " vs depth 1")
+                    for p in new_d:
+                        if not torch.equal(new_d[p], new_1[p]):
+                            fail(f"{where}: state of {p} differs from "
+                                 f"depth 1")
+                    sd, s1 = new_d, new_1
+                    cases += 1
+
+    # the serving paths at depth 2, counted from zero
+    feng = FrameEngine(device=dev, max_batch=SERVE_B, rows_per_step=SERVE_R,
+                       tile_shape=(SERVE_H, SERVE_W), prefetch_depth=2)
+    reqs = [FrameRequest(rid=i, pipeline=names[i % len(names)],
+                         frames={"in": frames(8600 + i, 1, SERVE_H,
+                                              SERVE_W)[0]})
+            for i in range(2 * len(names))]
+    veng = VideoEngine(device=dev, chunk=VIDEO_CHUNK, rows_per_step=SERVE_R,
+                       prefetch_depth=2)
+    streams = {veng.open_stream(n, SERVE_H, SERVE_W):
+               (n, frames(8700 + i, 2 * VIDEO_CHUNK, SERVE_H, SERVE_W))
+               for i, n in enumerate(vnames)}
+    sp.stencil_pipeline.launches = sp.stencil_pipeline.prefetch_launches = 0
+    t0 = time.perf_counter()
+    served = feng.run(reqs)
+    for sid, (_, vid) in streams.items():
+        for f in vid:
+            if not veng.submit(VideoFrame(sid, {"in": f})):
+                fail(f"stream {sid} refused a frame")
+    vdone = {sid: [] for sid in streams}
+    while veng.pending:
+        for c in veng.step():
+            if not hasattr(c, "warm"):
+                fail(f"stream {c.stream} frame failed: {c!r}")
+            vdone[c.stream].append(c.output)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = sp.stencil_pipeline.prefetch_launches
+    if launches == 0 or launches != sp.stencil_pipeline.launches:
+        fail(f"depth-2 serving launched the prefetch kernel {launches} "
+             f"of {sp.stencil_pipeline.launches} times")
+    for r in reqs:
+        if not isinstance(served.get(r.rid), torch.Tensor):
+            fail(f"request {r.rid} not served: {served.get(r.rid)!r}")
+        check(served[r.rid], sp.stencil_pipeline_plain(
+            feng.cache.dag_for(r.pipeline),
+            {"in": torch.from_numpy(r.frames["in"]).to(dev)}),
+            f"served frame {r.rid} ({r.pipeline}) depth 2")
+    for sid, (name, vid) in streams.items():
+        check(torch.stack(vdone[sid]),
+              plain_stream(veng.cache.dag_for(name),
+                           torch.from_numpy(vid).to(dev)),
+              f"stream {sid} ({name}) depth 2")
+
+    # times at depth 1, 2, 4: one B=4 batch / one chunk-4 launch, 1080p
+    per = {}
+    x = torch.from_numpy(frames(8800, SERVE_B, SERVE_H, SERVE_W)).to(dev)
+    for name in names + vnames:
+        dag = (algorithms.ALGORITHMS.get(name)
+               or algorithms.VIDEO_ALGORITHMS[name])()
+        plan = compile_pipeline(dag, SERVE_W)
+        depths = dag.temporal_depths()
+        states = [torch.from_numpy(frames(8900, depths[p] - 1, SERVE_H,
+                                          SERVE_W)).to(dev)
+                  for p in dag.topo_order if p in depths]
+        row = {}
+        for d in (1, *DEPTHS):
+            prog = sp.build_program(dag, SERVE_H, SERVE_W, SERVE_R,
+                                    frames=SERVE_B,
+                                    alloc_buffers=plan.alloc.buffers,
+                                    prefetch_depth=d)
+            occ = sp.blocks_per_sm(prog)
+            ctas = prog.grid_x * prog.grid_y * SERVE_B
+            row[f"d{d}"] = {
+                "ms": cuda_ms(lambda: sp.stencil_pipeline(prog, [x], states),
+                              iters=20),
+                "smem_bytes": prog.smem_bytes,
+                "staging_bytes": prog.staging_bytes,
+                "blocks_per_sm": occ, "waves": ctas / (occ * sms)}
+        inputs = {"in": x}
+        row["plain_ms"] = cuda_ms(lambda: sp.video_pipeline_plain(dag, {
+            **inputs, **sp.tap_feeds(dag, inputs, dict(zip(
+                prog.states, states)), SERVE_B)}), iters=3, warmup=1)
+        nbytes, ops = sp.launch_work(prog, SERVE_B)
+        t_bytes, t_ops = nbytes / mem_rate * 1e3, ops / flop_rate * 1e3
+        row.update(bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   ctas=ctas)
+        per[name] = row
+    emit("depth", kernel="stencil_pipeline (prefetch)", depths=list(DEPTHS),
+         cases=cases, spatial_shapes=[list(s) for s in DEPTH_SHAPES],
+         video_shapes=[list(s) for s in DEPTH_VIDEO_SHAPES],
+         frames_per_stream=DEPTH_T, rows_per_step=SERVE_R,
+         served_frames=len(reqs), served_streams=len(streams),
+         serve_s=serve_s, launches=launches, max_abs_err=max_err,
+         max_ulp=max_ulp, tolerance_ulp=TOLERANCE_ULP,
+         timed_on=f"B={SERVE_B} (chunk of {SERVE_B} for video) "
+                  f"{SERVE_H}x{SERVE_W} R={SERVE_R}",
+         per_pipeline=per)
+    spatial = [per[n] for n in names]
+    return {"launches": launches, "max_abs_err": max_err,
+            "max_ulp": max_ulp,
+            "ms": sum(p["d2"]["ms"] for p in spatial),
+            "ms_depth4": sum(p["d4"]["ms"] for p in spatial),
+            "plain_ms": sum(p["plain_ms"] for p in spatial),
+            "bound_ms": sum(p["bound_ms"] for p in spatial),
+            "bound_by": "bytes" if all(p["bound_by"] == "bytes"
+                                       for p in spatial) else "operations"}
+
+
+def conv2d_phase(dev, mem_rate: float, flop_rate: float) -> dict:
+    """Phase 9: the conv2d kernel (K2). Returns the kernels-line entry."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import conv2d_stencil, ops
+    rng = np.random.RandomState(SEED + 9)
+    img = torch.from_numpy(rng.rand(SERVE_H, SERVE_W)
+                           .astype(np.float32)).to(dev)
+    wts = [torch.from_numpy(rng.randn(*k).astype(np.float32)).to(dev)
+           for k in CONV_FILTERS]
+    conv2d_stencil.conv2d.launches = 0
+    outs = [ops.conv2d(img, wt, device=dev) for wt in wts]
+    torch.cuda.synchronize()
+    launches = conv2d_stencil.conv2d.launches
+    if launches != len(wts):
+        fail(f"ops.conv2d launched the kernel {launches} times")
+    max_err, max_ulp = 0.0, 0.0
+    checks = [(img, wt, out) for wt, out in zip(wts, outs)]
+    for h, w in CONV_SWEEP[0]:
+        for k in CONV_SWEEP[1]:
+            x = torch.from_numpy(rng.rand(h, w).astype(np.float32)).to(dev)
+            wt = torch.from_numpy(rng.randn(*k).astype(np.float32)).to(dev)
+            checks.append((x, wt, conv2d_stencil.conv2d(x, wt)))
+    for x, wt, got in checks:
+        err, ulp = ulp_err(got, conv2d_stencil.conv2d_plain(x, wt))
+        if ulp > TOLERANCE_ULP:
+            fail(f"conv2d {tuple(x.shape)} {tuple(wt.shape)}: kernel "
+                 f"differs from plain by {ulp} ULP (abs {err})")
+        max_err, max_ulp = max(max_err, err), max(max_ulp, ulp)
+    per = {}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False        # a float32 yardstick
+    try:
+        for (kh, kw), wt in zip(CONV_FILTERS, wts):
+            padded = F.pad(img, (kw - 1, 0, kh - 1, 0))[None, None]
+            nbytes = 2 * SERVE_H * SERVE_W * 4 + kh * kw * 4
+            ops_n = 2 * kh * kw * SERVE_H * SERVE_W
+            t_bytes, t_ops = nbytes / mem_rate * 1e3, ops_n / flop_rate * 1e3
+            lib = F.conv2d(padded, wt[None, None])[0, 0]
+            per[f"{kh}x{kw}"] = {
+                "ms": cuda_ms(lambda: conv2d_stencil.conv2d(img, wt),
+                              iters=50),
+                "plain_ms": cuda_ms(lambda: conv2d_stencil.conv2d_plain(
+                    img, wt), iters=5, warmup=1),
+                "library_ms": cuda_ms(lambda: F.conv2d(padded,
+                                                       wt[None, None]),
+                                      iters=50),
+                "library_max_abs_diff": (lib - conv2d_stencil.conv2d(
+                    img, wt)).abs().max().item(),
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bytes": nbytes, "ops": ops_n,
+                "smem_bytes": conv2d_stencil.smem_bytes(kh, kw, 8)}
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    emit("conv2d", kernel="conv2d", shape=[SERVE_H, SERVE_W],
+         filters=[list(k) for k in CONV_FILTERS], launches=launches,
+         sweep_shapes=[list(s) for s in CONV_SWEEP[0]],
+         sweep_filters=[list(k) for k in CONV_SWEEP[1]], cases=len(checks),
+         max_abs_err=max_err, max_ulp=max_ulp, tolerance_ulp=TOLERANCE_ULP,
+         cudnn_allow_tf32=False, per_filter=per)
+    return {"launches": launches, "max_abs_err": max_err,
+            "max_ulp": max_ulp,
+            **{k: sum(p[k] for p in per.values())
+               for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+            "bound_by": "bytes" if all(p["bound_by"] == "bytes"
+                                       for p in per.values())
+            else "operations"}
+
+
+def swa_inputs(shape, rng, dev):
+    b, hq, hkv, d, s = shape
+    q, k, v = (torch.from_numpy(rng.randn(*sh).astype(np.float32)).to(dev)
+               for sh in ((b, hq, d), (b, s, hkv, d), (b, s, hkv, d)))
+    length = rng.randint(1, s + 1, size=b).astype(np.int32)
+    start = rng.randint(0, s, size=b).astype(np.int32)
+    return q, k, v, length, start
+
+
+def swa_phase(dev, mem_rate: float, flop_rate: float) -> dict:
+    """Phase 10: the swa_decode kernel (K3). Returns the kernels-line
+    entry."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import swa_decode as swa
+    rng = np.random.RandomState(SEED + 10)
+    b, hq, hkv, d, s = SWA_SHAPE
+    q, k, v, _, _ = swa_inputs(SWA_SHAPE, rng, dev)
+    # a full window on most rows (steady decode), an empty ring, a ring
+    # that wraps, and a half-filled one
+    length = np.full(b, s, np.int32)
+    start = rng.randint(0, s, size=b).astype(np.int32)
+    length[0], length[1], start[1] = 0, s // 2, s - 3
+    length_t = torch.from_numpy(length).to(dev)
+    start_t = torch.from_numpy(start).to(dev)
+    swa.swa_decode.launches = 0
+    got = ops.swa_decode(q, k, v, length_t, start_t, device=dev)
+    torch.cuda.synchronize()
+    launches = swa.swa_decode.launches
+    if launches != 1:
+        fail(f"ops.swa_decode launched the kernel {launches} times")
+    if not torch.equal(got[0], torch.zeros_like(got[0])):
+        fail("swa_decode: an empty ring did not give zeros")
+    checks = [(SWA_SHAPE, got, (q, k, v, length_t, start_t))]
+    for shape in SWA_SWEEP:
+        q2, k2, v2, ln, st = swa_inputs(shape, rng, dev)
+        ln[0] = 0
+        args = (q2, k2, v2, torch.from_numpy(ln).to(dev),
+                torch.from_numpy(st).to(dev))
+        checks.append((shape, swa.swa_decode(*args), args))
+    max_err = 0.0
+    for shape, out, args in checks:
+        exp = swa.swa_decode_plain(*args)
+        if not torch.isfinite(out).all() or not torch.allclose(
+                out, exp, rtol=swa.RTOL, atol=swa.ATOL):
+            fail(f"swa_decode {shape}: kernel differs from plain by "
+                 f"{(out - exp).abs().max().item()}")
+        max_err = max(max_err, (out - exp).abs().max().item())
+    # bytes: q and out once, K and V rows of the valid slots once
+    valid = int(np.minimum(length, s).sum())
+    nbytes = 2 * valid * hkv * d * 4 + 2 * b * hq * d * 4 + 2 * b * 4
+    ops_n = 4 * valid * hq * d
+    t_bytes, t_ops = nbytes / mem_rate * 1e3, ops_n / flop_rate * 1e3
+    mask = swa.ring_valid(length_t, start_t, s)[:, None, None, :]
+    qs, ks, vs = q[:, :, None], k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+    per = {
+        "ms": cuda_ms(lambda: swa.swa_decode(q, k, v, length_t, start_t),
+                      iters=50),
+        "plain_ms": cuda_ms(lambda: swa.swa_decode_plain(
+            q, k, v, length_t, start_t), iters=10),
+        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, enable_gqa=True), iters=50),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": nbytes, "ops": ops_n, "valid_slots": valid,
+        "smem_bytes": swa.smem_bytes(hq // hkv, s, d), "ctas": b * hkv}
+    emit("swa_decode", kernel="swa_decode", shape=list(SWA_SHAPE),
+         shape_is="B, Hq, Hkv, D, S (gemma3-1b local layers)",
+         sweep_shapes=[list(x) for x in SWA_SWEEP], launches=launches,
+         cases=len(checks), max_abs_err=max_err,
+         tolerance={"rtol": swa.RTOL, "atol": swa.ATOL}, **per)
+    return {"launches": launches, "max_abs_err": max_err, **per}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -413,10 +779,10 @@ def main() -> None:
 
     # ----------------------------------------------------------- 2. build
     t0 = time.perf_counter()
-    libs = _build.build("stencil_pipeline")
+    libs = _build.build("stencil_pipeline", "conv2d_stencil", "swa_decode")
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in _build.BUILD_LOG.get(
-        "stencil_pipeline", "").splitlines() if "registers" in ln]
+    ptxas = {n: [ln.strip() for ln in log.splitlines() if "registers" in ln]
+             for n, log in _build.BUILD_LOG.items()}
     emit("build", seconds=build_s, flags=list(_build.NVCC_FLAGS),
          libraries={n: os.path.relpath(p, ROOT) for n, p in libs.items()},
          ptxas=ptxas)
@@ -549,7 +915,13 @@ def main() -> None:
     k1c = video_serve_phase(dev, mem_rate, flop_rate, sms)
     tuned_phase(dev)
 
-    # ---------------------------------------------------- 8. kernels line
+    # ------------------------------------- 8-10. depth, conv2d, swa_decode
+    torch.backends.cuda.matmul.allow_tf32 = False   # float32 plain versions
+    k1d = depth_phase(dev, mem_rate, flop_rate, sms)
+    k2 = conv2d_phase(dev, mem_rate, flop_rate)
+    k3 = swa_phase(dev, mem_rate, flop_rate)
+
+    # --------------------------------------------------- 11. kernels line
     share: dict[str, float] = {}
     for p in per.values():
         share[p["bound_by"]] = share.get(p["bound_by"], 0.0) + p["bound_ms"]
@@ -579,6 +951,40 @@ def main() -> None:
         "bound_by": k1c["bound_by"], "library_ms": None,
         "timed_on": f"one chunk-{VIDEO_CHUNK} {SERVE_H}x{SERVE_W} "
                     f"R={SERVE_R} launch of each of the 4 video pipelines",
+    }, {
+        "name": f"{sp.stencil_pipeline.name} (prefetch)", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/stencil_pipeline.cu",
+        "replaces": "src/repro/kernels/stencil_pipeline.py:423",
+        "replaces_part": "prefetch_depth >= 2 rings (:319-421)",
+        "launches": k1d["launches"], "max_abs_err": k1d["max_abs_err"],
+        "max_ulp": k1d["max_ulp"], "ms": k1d["ms"],
+        "ms_depth4": k1d["ms_depth4"], "plain_ms": k1d["plain_ms"],
+        "bound_ms": k1d["bound_ms"], "bound_by": k1d["bound_by"],
+        "library_ms": None,
+        "timed_on": f"one B={SERVE_B} {SERVE_H}x{SERVE_W} R={SERVE_R} "
+                    f"batch of each of the {len(names)} pipelines at "
+                    f"depth 2 (ms_depth4: depth 4)",
+    }, {
+        "name": "conv2d", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/conv2d_stencil.cu",
+        "replaces": "src/repro/kernels/conv2d_stencil.py:52",
+        **{key: k2[key] for key in ("launches", "max_abs_err", "max_ulp",
+                                    "ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms")},
+        "library": "torch.nn.functional.conv2d, cudnn TF32 off",
+        "timed_on": f"a {SERVE_H}x{SERVE_W} frame with a 3x3 and a 5x5 "
+                    f"filter, summed",
+    }, {
+        "name": "swa_decode", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/swa_decode.cu",
+        "replaces": "src/repro/kernels/swa_decode.py:66",
+        **{key: k3[key] for key in ("launches", "max_abs_err", "ms",
+                                    "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")},
+        "library": "torch.nn.functional.scaled_dot_product_attention, "
+                   "boolean ring mask, enable_gqa",
+        "timed_on": "B=64, Hq=4, Hkv=1, D=256, S=512 (gemma3-1b local "
+                    "layers)",
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 // Fused line-buffered stencil pipeline on Hopper (sm_90a).
 //
 // Replaces repro/kernels/stencil_pipeline.py::_build_pipeline_call of the
-// JAX package at prefetch_depth=1: the single-frame spatial kernel, its
-// batched grid, and its temporal form (history taps and frame outputs).
+// JAX package: the single-frame spatial kernel, its batched grid, its
+// temporal form (history taps and frame outputs), and its prefetch_depth
+// >= 2 form (input rings filled by asynchronous copies ahead of compute).
 // One launch runs a whole pipeline DAG over a batch of frames; every
 // intermediate stage lives only in shared-memory ring line buffers (the
 // paper's line buffer), so device memory sees each input pixel read once
@@ -58,6 +59,28 @@
 // library is built with -fmad=false), in the reference's order, and sqrt
 // is __fsqrt_rn. The eager PyTorch version does one rounding per
 // operation in the same order, so the two agree bit for bit.
+//
+// Prefetch depth d >= 2 (the kPrefetch instantiations). The TPU kernel
+// stages every feed through a (d, R, W) VMEM ring filled by
+// pltpu.make_async_copy, so step t computes on slot t % d while steps
+// t+1..t+d-1 load, and drains outputs through staging rings. Here each
+// feed stage (an input, or a history tap) owns a staging ring of d slots
+// of R x ncols floats in dynamic shared memory, after the line rings. A
+// CTA's row groups are its steps t = 0, 1, ...; a prologue issues the
+// copies of steps 0..d-1, step t waits for its own slot, the input and tap
+// stages read the slot instead of device memory, and after the stage
+// pass's last barrier the kernel refills that slot with step t + d. The
+// copies are 4-byte cp.async (src-size 0 writes the zero of the frame
+// edge), so any width works: a TMA tensor map would need 16-byte row
+// strides. One commit group per step (an empty one past the band's last
+// step) and cp.async.wait_group d-1 track completion. Each thread copies
+// exactly the slot elements it later reads (the same idx loop), so its own
+// wait makes them visible; no block barrier is needed for the copies.
+// Depths above 8 stay correct but keep at most 8 steps in flight, since
+// wait_group takes an immediate. Outputs keep direct global stores: a
+// store does not stall the warp that issues it, so the TPU's output
+// staging rings have no work to do here. The depth-1 instantiations
+// compile to the kernel without any of this.
 
 #include <cuda_runtime.h>
 #include <string.h>
@@ -81,18 +104,21 @@ enum Op {
 };
 
 // header fields
+// H_DEPTH is the prefetch depth, H_STAGING the offset (floats) of the
+// staging rings in shared memory, H_POISON fills them with NaN at start.
 enum Hdr {
   H_NSTAGES = 0, H_R, H_H, H_W, H_STRIP_W, H_HALO_LEFT, H_NCOLS, H_BAND_H,
-  H_HALO_UP, H_SMEM_BYTES, H_TEMPORAL
+  H_HALO_UP, H_SMEM_BYTES, H_TEMPORAL, H_DEPTH, H_STAGING, H_POISON
 };
 
 // stage fields; S_SRC, S_ST, S_SH and S_SW each hold up to 3 operands.
 // S_FEED is an input's feed (or, for a tap, its producer's input feed,
 // -1 for an internal producer); S_STATE and S_TAPJ locate a tap's
-// frame-ring state and its frames back; S_FOUT is a frame output or -1.
+// frame-ring state and its frames back; S_FOUT is a frame output or -1;
+// S_STAGE is a feed stage's staging ring at depth >= 2, else -1.
 enum Field {
   S_OP = 0, S_RING, S_FINAL, S_FEED, S_NSRC, S_WOFF, S_FOUT, S_STATE,
-  S_TAPJ, S_SRC = 9, S_ST = 12, S_SH = 15, S_SW = 18
+  S_TAPJ, S_SRC = 9, S_ST = 12, S_SH = 15, S_SW = 18, S_STAGE = 21
 };
 
 struct Program {
@@ -110,10 +136,41 @@ struct Outs {
   float* p[kMaxOuts];
 };
 
+#ifndef STENCIL_HOST_SHIM
+// 4-byte asynchronous copy from device to shared memory; ok == false
+// reads nothing and writes zero (src-size 0).
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(d), "l"(src), "r"(ok ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most min(n, 7) of this thread's commit groups are pending
+__device__ __forceinline__ void cp_async_wait(int n) {
+  switch (n) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    case 3: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+    case 4: asm volatile("cp.async.wait_group 4;\n" ::: "memory"); break;
+    case 5: asm volatile("cp.async.wait_group 5;\n" ::: "memory"); break;
+    case 6: asm volatile("cp.async.wait_group 6;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 7;\n" ::: "memory"); break;
+  }
+}
+#endif
+
 // kTemporal: the instantiation that also runs history taps, the temporal
 // ops and frame outputs. Spatial programs launch the other one, whose code
 // is the spatial kernel's alone (the temporal cases compile to nothing).
-template <bool kTemporal>
+// kPrefetch: feeds arrive through staging rings (prefetch depth >= 2);
+// without it the feed stages read device memory inline.
+template <bool kTemporal, bool kPrefetch>
 __global__ void __launch_bounds__(kThreads)
 stencil_pipeline_kernel(const __grid_constant__ Program P,
                         const __grid_constant__ Feeds F,
@@ -137,7 +194,56 @@ stencil_pipeline_kernel(const __grid_constant__ Program P,
   const size_t frame = blockIdx.z * hw;
   const int items = R * ncols;
 
-  for (int row0 = rlo; row0 < y1; row0 += R) {
+  // prefetch: the feed stage's frame in device memory (a tap of frame b
+  // reads launch frame b - j, or state slot j - b - 1), slot u % depth of
+  // its staging ring, and the copies of step u (none past the band's last
+  // step), committed as one group
+  const int depth = kPrefetch ? P.hdr[H_DEPTH] : 1;
+  const int n_steps = (y1 - rlo + R - 1) / R;
+  auto feed_frame = [&](const int* S) -> const float* {
+    const int b = blockIdx.z, j = S[S_TAPJ];
+    if (S[S_OP] != OP_TAP) return F.p[S[S_FEED]] + frame;
+    return b >= j ? F.p[S[S_FEED]] + (b - j) * hw
+                  : F.p[S[S_STATE]] + (j - b - 1) * hw;
+  };
+  auto slot_of = [&](const int* S, int u) -> float* {
+    return smem + P.hdr[H_STAGING] + (S[S_STAGE] * depth + u % depth) * items;
+  };
+  auto issue = [&](int u) {
+    if (u < n_steps) {
+      const int r0 = rlo + u * R;
+      for (int s = 0; s < n_stages; ++s) {
+        const int* S = P.st[s];
+        if (S[S_STAGE] < 0) continue;
+        const float* src = feed_frame(S);
+        float* dst = slot_of(S, u);
+        for (int idx = threadIdx.x; idx < items; idx += blockDim.x) {
+          const int i = idx / ncols;
+          const int row = r0 + i;
+          const int col = cbase + idx - i * ncols;
+          const bool ok = row < h && col >= 0 && col < w;
+          cp_async4(dst + idx,
+                    ok ? src + static_cast<size_t>(row) * w + col : src, ok);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  if constexpr (kPrefetch) {
+    if (P.hdr[H_POISON]) {
+      // debug: a read of a slot before its copy lands gives NaN
+      for (int i = P.hdr[H_STAGING] + threadIdx.x;
+           i < P.hdr[H_SMEM_BYTES] / 4; i += blockDim.x)
+        smem[i] = __int_as_float(0x7fc00000);
+      __syncthreads();
+    }
+    for (int u = 0; u < depth; ++u) issue(u);
+  }
+
+  int t = 0;
+  for (int row0 = rlo; row0 < y1; row0 += R, ++t) {
+    // this thread's copies of step t have landed
+    if constexpr (kPrefetch) cp_async_wait(depth - 1);
     for (int s = 0; s < n_stages; ++s) {
       const int* S = P.st[s];
       const int op = S[S_OP];
@@ -163,12 +269,16 @@ stencil_pipeline_kernel(const __grid_constant__ Program P,
         float v = 0.f;
         switch (op) {
           case OP_INPUT:
-            if (row < h && col >= 0 && col < w)
+            if constexpr (kPrefetch)
+              v = slot_of(S, t)[idx];
+            else if (row < h && col >= 0 && col < w)
               v = __ldg(F.p[S[S_FEED]] + frame + static_cast<size_t>(row) * w
                         + col);
             break;
           case OP_TAP:
-            if (kTemporal && row < h && col >= 0 && col < w) {
+            if constexpr (kPrefetch) {
+              if (kTemporal) v = slot_of(S, t)[idx];
+            } else if (kTemporal && row < h && col >= 0 && col < w) {
               // frame b's tap j is launch frame b - j, or state slot
               // j - b - 1 (newest first) when that frame precedes it
               const int b = blockIdx.z, j = S[S_TAPJ];
@@ -289,7 +399,19 @@ stencil_pipeline_kernel(const __grid_constant__ Program P,
       // overwrites ring rows this stage's consumers have read
       __syncthreads();
     }
+    // step t's slots are read: refill them with step t + depth
+    if constexpr (kPrefetch) issue(t + depth);
   }
+}
+
+using Kernel = void (*)(Program, Feeds, Outs);
+
+Kernel pick_kernel(int temporal, int prefetch) {
+  if (prefetch)
+    return temporal ? stencil_pipeline_kernel<true, true>
+                    : stencil_pipeline_kernel<false, true>;
+  return temporal ? stencil_pipeline_kernel<true, false>
+                  : stencil_pipeline_kernel<false, false>;
 }
 
 }  // namespace
@@ -314,8 +436,7 @@ extern "C" int stencil_pipeline_launch(const int* table, const float* wts,
   Outs O;
   for (int i = 0; i < kMaxOuts; ++i) O.p[i] = static_cast<float*>(outs[i]);
   const int smem = P.hdr[H_SMEM_BYTES];
-  void (*kernel)(Program, Feeds, Outs) = P.hdr[H_TEMPORAL]
-      ? stencil_pipeline_kernel<true> : stencil_pipeline_kernel<false>;
+  const Kernel kernel = pick_kernel(P.hdr[H_TEMPORAL], P.hdr[H_DEPTH] > 1);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -328,13 +449,13 @@ extern "C" const char* stencil_pipeline_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// CTAs of the kernel (the temporal instantiation when ``temporal``) that
-// fit on one SM at ``smem_bytes`` of dynamic shared memory each, written
-// to ``*blocks``; returns the cudaError_t.
+// CTAs of the kernel (the temporal instantiation when ``temporal``, the
+// staging one when ``prefetch``) that fit on one SM at ``smem_bytes`` of
+// dynamic shared memory each, written to ``*blocks``; returns the
+// cudaError_t.
 extern "C" int stencil_pipeline_blocks_per_sm(int smem_bytes, int temporal,
-                                              int* blocks) {
-  void (*kernel)(Program, Feeds, Outs) = temporal
-      ? stencil_pipeline_kernel<true> : stencil_pipeline_kernel<false>;
+                                              int prefetch, int* blocks) {
+  const Kernel kernel = pick_kernel(temporal, prefetch);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);

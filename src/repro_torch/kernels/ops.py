@@ -14,10 +14,11 @@ from repro_torch._device import resolve_device
 from repro_torch.core.codegen import PipelinePlan
 from repro_torch.core.dag import PipelineDAG
 
+from . import conv2d_stencil, swa_decode as _swa
 from .stencil_pipeline import (StencilExecutor, _resolve_depth,
                                _resolve_rows, make_executor)
 
-__all__ = ["fused_pipeline", "pipeline_smem_bytes"]
+__all__ = ["conv2d", "fused_pipeline", "pipeline_smem_bytes", "swa_decode"]
 
 # sentinel fingerprint for plan-less builds: keys must never collide with
 # a real plan's sha256 hex digest (which is lowercase hex, no colons)
@@ -124,3 +125,23 @@ def pipeline_smem_bytes(dag: PipelineDAG, h: int, w: int,
     """Shared memory per CTA of the kernel ``fused_pipeline`` launches."""
     return _executor(dag, h, w, plan, rows_per_step, prefetch_depth,
                      device).smem_bytes
+
+
+def conv2d(img, weights, tile_rows: int = 8,
+           device: str | torch.device = "cuda") -> torch.Tensor:
+    """Causal (bottom-right aligned) 2-D convolution with zero padding,
+    float32: img (h, w), weights (kh, kw) -> (h, w) on ``device``."""
+    dev = resolve_device(device)
+    return conv2d_stencil.conv2d(torch.as_tensor(img, device=dev),
+                                 torch.as_tensor(weights, device=dev),
+                                 tile_rows=tile_rows)
+
+
+def swa_decode(q, k, v, length, ring_start,
+               device: str | torch.device = "cuda") -> torch.Tensor:
+    """Sliding-window decode attention over a ring KV cache: q (B, Hq,
+    D); k, v (B, S, Hkv, D) rings; length, ring_start (B,). Returns
+    (B, Hq, D) float32 on ``device``."""
+    dev = resolve_device(device)
+    return _swa.swa_decode(*(torch.as_tensor(x, device=dev)
+                             for x in (q, k, v, length, ring_start)))

@@ -9,7 +9,10 @@ strip, row band) and recomputes the strip's and band's halo from real
 input (see the source note there). Temporal pipelines add history taps
 — pseudo-inputs with their own rings, read from the caller's frame-ring
 state or from earlier frames of the same launch — and frame outputs for
-internal temporal producers.
+internal temporal producers. At ``prefetch_depth`` d >= 2 every feed
+(input or history tap) is staged through a d-slot shared-memory ring
+that asynchronous copies fill d - 1 row groups ahead of compute; the
+pixels are the same as at depth 1, bit for bit.
 
 This module holds, beside the kernel:
 
@@ -26,9 +29,6 @@ This module holds, beside the kernel:
     and :class:`VideoExecutor` / :func:`make_video_executor` (frame
     streams with explicit frame-ring state) — the serving-side
     artifacts over one shape.
-
-Only ``prefetch_depth == 1`` runs here; deeper prefetch is refused with
-an error.
 """
 from __future__ import annotations
 
@@ -68,10 +68,11 @@ HDR, MAX_STAGES, STAGE_INTS, MAX_RINGS = 16, 24, 24, 24
 MAX_WTS, MAX_FEEDS, MAX_OUTS, MAX_SRC = 256, 8, 4, 3
 TABLE_INTS = HDR + MAX_STAGES * STAGE_INTS + MAX_RINGS * 2
 (H_NSTAGES, H_R, H_H, H_W, H_STRIP_W, H_HALO_LEFT, H_NCOLS, H_BAND_H,
- H_HALO_UP, H_SMEM_BYTES, H_TEMPORAL) = range(11)
+ H_HALO_UP, H_SMEM_BYTES, H_TEMPORAL, H_DEPTH, H_STAGING,
+ H_POISON) = range(14)
 (S_OP, S_RING, S_FINAL, S_FEED, S_NSRC, S_WOFF, S_FOUT, S_STATE,
  S_TAPJ) = range(9)
-S_SRC, S_ST, S_SH, S_SW = 9, 12, 15, 18
+S_SRC, S_ST, S_SH, S_SW, S_STAGE = 9, 12, 15, 18, 21
 
 # Launch geometry from perf/geometry_sweep.py at 1080p, R=8: faster than
 # every 128-column cell for all seven pipelines, at one frame and at four
@@ -129,6 +130,8 @@ class StencilProgram:
     ``feeds`` are the input stages, ``states`` the temporal producers
     whose frame rings the launch reads, ``frame_outs`` the internal
     temporal producers whose frames it writes beside the output.
+    ``staging_bytes`` is the part of ``smem_bytes`` that the prefetch
+    staging rings take at ``prefetch_depth`` >= 2 (0 at depth 1).
     """
     dag: PipelineDAG
     h: int
@@ -144,6 +147,8 @@ class StencilProgram:
     grid_x: int
     grid_y: int
     smem_bytes: int
+    prefetch_depth: int = 1
+    staging_bytes: int = 0
 
 
 def _band_height(h: int, strips: int, frames: int, halo_up: int,
@@ -160,7 +165,9 @@ def build_program(dag: PipelineDAG, h: int, w: int, rows_per_step: int,
                   frames: int = 1,
                   alloc_buffers: Mapping | None = None, *,
                   strip_w: int = STRIP_W,
-                  target_ctas: int = TARGET_CTAS) -> StencilProgram:
+                  target_ctas: int = TARGET_CTAS,
+                  prefetch_depth: int = 1,
+                  poison_staging: bool = False) -> StencilProgram:
     """Resolve ``dag`` into the kernel's stage table for (h, w) frames.
 
     Operand order is resolved here, once: each payload maps its in-edges
@@ -170,12 +177,25 @@ def build_program(dag: PipelineDAG, h: int, w: int, rows_per_step: int,
     so an operand's (first ring, st) spans its time window. ``frames``
     is the batch the launch geometry is sized for; ``strip_w`` and
     ``target_ctas`` set that geometry (the defaults are what the
-    executors use; other values serve the geometry sweep). Raises
-    ValueError for a DAG the kernel cannot run (unknown payload, table
-    overflow, shared memory over the block limit).
+    executors use; other values serve the geometry sweep).
+
+    At ``prefetch_depth`` d >= 2 each feed stage (each input and each
+    history tap) gets a staging ring of d slots of R x ``ncols`` floats,
+    so the bill is the line rings plus d * R * ncols * 4 bytes per feed.
+    Outputs are stored directly, so unlike ``codegen.prefetch_ring_bytes``
+    (the TPU's VMEM arithmetic: input and output rings, lanes padded to
+    128) the bill has no output rings and no padding.
+    ``poison_staging`` makes the kernel fill its staging rings with NaN
+    before the first copy, so a read that overtakes its copy shows.
+    Raises ValueError for a DAG the kernel cannot run (unknown payload,
+    table overflow, shared memory over the block limit) and for a depth
+    below 1.
     """
     if h < 1 or w < 1:
         raise ValueError(f"frame shape must be positive, got ({h}, {w})")
+    if prefetch_depth < 1:
+        raise ValueError(f"prefetch_depth must be >= 1, got "
+                         f"{prefetch_depth}")
     r = rows_per_step
     up, left = dag.cumulative_extent()
     strip_w = min(strip_w, w)
@@ -206,11 +226,16 @@ def build_program(dag: PipelineDAG, h: int, w: int, rows_per_step: int,
                          f"{1 + len(fouts)} outputs exceed the kernel's "
                          f"{MAX_STAGES} / {MAX_RINGS} / {MAX_FEEDS} / "
                          f"{MAX_OUTS}")
-    smem = sum(ring_rows) * ncols * 4
+    # the feed stages (inputs and taps) that own a staging ring
+    staged = [n for n in stages
+              if isinstance(n, tuple) or dag.stages[n].is_input] \
+        if prefetch_depth > 1 else []
+    staging = len(staged) * prefetch_depth * r * ncols * 4
+    smem = sum(ring_rows) * ncols * 4 + staging
     if smem > SMEM_LIMIT:
         raise ValueError(f"{dag.name}: rings need {smem} bytes of shared "
-                         f"memory at R={r}, over the {SMEM_LIMIT}-byte "
-                         f"block limit")
+                         f"memory at R={r}, depth {prefetch_depth}, over "
+                         f"the {SMEM_LIMIT}-byte block limit")
 
     table = np.zeros(TABLE_INTS, np.int32)
     wts: list[float] = []
@@ -218,6 +243,7 @@ def build_program(dag: PipelineDAG, h: int, w: int, rows_per_step: int,
         row = table[HDR + s * STAGE_INTS: HDR + (s + 1) * STAGE_INTS]
         row[S_RING] = ring_idx.get(name, -1)
         row[S_FOUT] = 1 + fouts.index(name) if name in fouts else -1
+        row[S_STAGE] = staged.index(name) if name in staged else -1
         row[S_WOFF] = len(wts)
         if isinstance(name, tuple):         # history tap (producer, j)
             p, j = name
@@ -255,16 +281,20 @@ def build_program(dag: PipelineDAG, h: int, w: int, rows_per_step: int,
         off += rows * ncols
     grid_x = -(-w // strip_w)
     band_h = _band_height(h, grid_x, frames, up, r, target_ctas)
-    # temporal programs launch the kernel's temporal instantiation
-    table[:H_TEMPORAL + 1] = (len(stages), r, h, w, strip_w, left, ncols,
-                              band_h, up, smem, int(bool(states)))
+    # temporal programs launch the kernel's temporal instantiation, and
+    # depth >= 2 its staging one
+    table[:H_POISON + 1] = (len(stages), r, h, w, strip_w, left, ncols,
+                            band_h, up, smem, int(bool(states)),
+                            prefetch_depth, off, int(poison_staging))
     wt = np.zeros(MAX_WTS, np.float32)
     wt[:len(wts)] = wts
     return StencilProgram(dag=dag, h=h, w=w, rows_per_step=r, feeds=feeds,
                           states=states, frame_outs=fouts,
                           table=table, wts=wt, strip_w=strip_w,
                           band_h=band_h, grid_x=grid_x,
-                          grid_y=-(-h // band_h), smem_bytes=smem)
+                          grid_y=-(-h // band_h), smem_bytes=smem,
+                          prefetch_depth=prefetch_depth,
+                          staging_bytes=staging)
 
 
 def _payload_operands(pipeline: str, name: str, fn, ins, wts: list
@@ -387,7 +417,8 @@ def _lib() -> ctypes.CDLL:
         lib.stencil_pipeline_error_string.argtypes = [ctypes.c_int]
         lib.stencil_pipeline_error_string.restype = ctypes.c_char_p
         lib.stencil_pipeline_blocks_per_sm.argtypes = [
-            ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_int)]
     return lib
 
 
@@ -403,8 +434,10 @@ def blocks_per_sm(program: StencilProgram) -> int:
     lib = _lib()
     n = ctypes.c_int(0)
     temporal = int(program.table[H_TEMPORAL])
+    prefetch = int(program.prefetch_depth > 1)
     _check(lib, lib.stencil_pipeline_blocks_per_sm(
-        program.smem_bytes, temporal, ctypes.byref(n)), "occupancy query")
+        program.smem_bytes, temporal, prefetch, ctypes.byref(n)),
+        "occupancy query")
     return n.value
 
 
@@ -419,12 +452,14 @@ class StencilPipelineKernel:
     when the program has frame outputs (internal temporal producers;
     then B must be 1). CPU tensors take the plain version; CUDA tensors
     launch the kernel on the current stream, and ``launches`` counts
-    those launches.
+    those launches; ``prefetch_launches`` counts those at prefetch depth
+    >= 2 (the staging instantiations) among them.
     """
     name = "stencil_pipeline"
 
     def __init__(self):
         self.launches = 0
+        self.prefetch_launches = 0
 
     def __call__(self, program: StencilProgram,
                  feeds: Sequence[torch.Tensor],
@@ -483,6 +518,7 @@ class StencilPipelineKernel:
                 optrs, program.grid_x, program.grid_y, b, stream)
         _check(lib, rc, "launch")
         self.launches += 1
+        self.prefetch_launches += program.prefetch_depth > 1
         if program.frame_outs:
             return outs[0], dict(zip(program.frame_outs, outs[1:]))
         return outs[0]
@@ -565,13 +601,12 @@ def make_executor(dag: PipelineDAG, h: int, w: int,
                          f"make_video_executor")
     r = _resolve_rows(rows_per_step, plan)
     d = _resolve_depth(prefetch_depth, plan)
-    if d != 1:
-        raise ValueError(f"prefetch_depth={d}: only depth 1 is ported")
     if batch is not None and batch < 1:
         raise ValueError(f"batch must be >= 1, got {batch}")
     dev = resolve_device(device)
     prog = build_program(dag, h, w, r, frames=batch or 1,
-                         alloc_buffers=plan.alloc.buffers if plan else None)
+                         alloc_buffers=plan.alloc.buffers if plan else None,
+                         prefetch_depth=d)
     return StencilExecutor(dag=dag, h=h, w=w, batch=batch, rows_per_step=r,
                            prefetch_depth=d, smem_bytes=prog.smem_bytes,
                            device=dev, plan=plan, program=prog)
@@ -691,8 +726,6 @@ def make_video_executor(dag: PipelineDAG, h: int, w: int,
     """
     r = _resolve_rows(rows_per_step, plan)
     d = _resolve_depth(prefetch_depth, plan)
-    if d != 1:
-        raise ValueError(f"prefetch_depth={d}: only depth 1 is ported")
     if chunk is not None and chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     internal = frame_outputs(dag)
@@ -704,7 +737,8 @@ def make_video_executor(dag: PipelineDAG, h: int, w: int,
     dev = resolve_device(device)
     depths = dag.temporal_depths()
     prog = build_program(dag, h, w, r, frames=chunk or 1,
-                         alloc_buffers=plan.alloc.buffers if plan else None)
+                         alloc_buffers=plan.alloc.buffers if plan else None,
+                         prefetch_depth=d)
     state_bytes = plan.vmem_frame_bytes(h) if plan is not None \
         else sum((k - 1) * h * w * 4 for k in depths.values())
     return VideoExecutor(dag=dag, h=h, w=w, chunk=chunk, rows_per_step=r,

@@ -1,19 +1,21 @@
-"""Time the spatial stencil kernel (K1a/K1b) of a source tree on the card.
+"""Time the fused stencil kernel (K1a-K1d) of a source tree on the card.
 
     PYTHONPATH=<tree>/src python3 src/repro_torch/perf/kernel_times.py \
-        [--tag NAME] [--iters 20]
+        [--tag NAME] [--iters 20] [--depth 1]
 
 Runs as a file, so ``repro_torch`` is imported from whichever tree
 ``PYTHONPATH`` names: one call can time two commits of the kernel on one
 card (unpack the other commit with ``git archive`` and run parent,
 change, change, parent). For each of the seven spatial pipelines at
-1080p, R=8 and a batch of four frames, at the executors' default launch
-geometry, prints one JSON line with the mean time of one launch (CUDA
-events over ``--iters`` launches after two warm-up launches) and a hash
-of the output, so two trees can also be checked for equal pixels. Uses
-only ``build_program`` and the wrapper, whose signatures every tree of
-the port shares. Needs an NVIDIA GPU; the card's name and power limit
-come first.
+1080p, R=8 and a batch of four frames, and each of the four video
+pipelines over a chunk of four frames and random frame-ring states, at
+the executors' default launch geometry, prints one JSON line with the
+mean time of one launch (CUDA events over ``--iters`` launches after two
+warm-up launches) and a hash of the output, so two trees can also be
+checked for equal pixels. Uses only ``build_program`` and the wrapper,
+whose signatures every tree of the port shares; ``--depth`` above 1
+passes ``prefetch_depth``, which only trees with the prefetch kernel
+take. Needs an NVIDIA GPU; the card's name and power limit come first.
 """
 from __future__ import annotations
 
@@ -50,6 +52,8 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tag", default="tree")
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--depth", type=int, default=1,
+                    help="prefetch depth of the programs timed")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: no CUDA device")
@@ -57,19 +61,27 @@ def main(argv=None) -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(json.dumps({"tag": args.tag, "nvidia_smi": smi}), flush=True)
-    x = torch.from_numpy(np.random.RandomState(0).rand(B, H, W)
-                         .astype(np.float32)).cuda()
-    for name in sorted(algorithms.ALGORITHMS):
-        dag = algorithms.ALGORITHMS[name]()
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.rand(B, H, W).astype(np.float32)).cuda()
+    extra = {"prefetch_depth": args.depth} if args.depth != 1 else {}
+    dags = [algorithms.ALGORITHMS[n]() for n in sorted(algorithms.ALGORITHMS)]
+    dags += [algorithms.VIDEO_ALGORITHMS[n]()
+             for n in sorted(algorithms.VIDEO_ALGORITHMS)]
+    for dag in dags:
         plan = compile_pipeline(dag, W)
         prog = sp.build_program(dag, H, W, R, frames=B,
-                                alloc_buffers=plan.alloc.buffers)
-        out = sp.stencil_pipeline(prog, [x])
+                                alloc_buffers=plan.alloc.buffers, **extra)
+        depths = dag.temporal_depths()
+        states = [torch.from_numpy(rng.rand(depths[p] - 1, H, W)
+                                   .astype(np.float32)).cuda()
+                  for p in prog.states]
+        out = sp.stencil_pipeline(prog, [x], states)
         digest = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
         print(json.dumps({
-            "tag": args.tag, "pipeline": name, "frames": B,
-            "smem_bytes": prog.smem_bytes,
-            "ms": _ms(lambda: sp.stencil_pipeline(prog, [x]), args.iters),
+            "tag": args.tag, "pipeline": dag.name, "frames": B,
+            "depth": args.depth, "smem_bytes": prog.smem_bytes,
+            "ms": _ms(lambda: sp.stencil_pipeline(prog, [x], states),
+                      args.iters),
             "output_sha256": digest[:16]}), flush=True)
 
 

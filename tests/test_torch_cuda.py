@@ -1,4 +1,4 @@
-"""The CUDA kernel and the serving path on the card.
+"""The CUDA kernels and the serving paths on the card.
 
 These tests need an NVIDIA GPU: on a machine without one they skip (the
 kernel has no CPU mode; the CPU tests hold its plain version against the
@@ -6,9 +6,11 @@ JAX oracle). They import nothing of JAX, so they run where the port does:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerance: bitwise. The kernel rounds every product and sum on its own
-(``_rn`` intrinsics, built with ``-fmad=false``) in the plain version's
-order, and its square root is correctly rounded like the plain one's.
+Tolerance: bitwise for the stencil kernels (any prefetch depth) and
+conv2d. They round every product and sum on their own (``_rn``
+intrinsics, built with ``-fmad=false``) in the plain version's order, and
+the square root is correctly rounded like the plain one's. swa_decode
+sums its dot products in another order: rtol 2e-4, atol 2e-5.
 """
 import numpy as np
 import pytest
@@ -18,7 +20,9 @@ from repro_torch.core import algorithms
 from repro_torch.core.dsl import Pipeline
 from repro_torch.imaging import FrameEngine, FrameRequest, PlanCache, \
     execute_tiled
+from repro_torch.kernels import conv2d_stencil, ops
 from repro_torch.kernels import stencil_pipeline as sp
+from repro_torch.kernels import swa_decode as swa
 from repro_torch.video import VideoEngine
 
 NAMES = sorted(algorithms.ALGORITHMS)
@@ -136,3 +140,130 @@ def test_video_engine_serves_through_the_kernel(cuda_device):
         {"in": torch.from_numpy(vid).to(cuda_device)})
     got = torch.stack(res[sid])
     assert got.device.type == "cuda" and torch.equal(got, exp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [2, 4])
+@pytest.mark.parametrize("name", NAMES)
+def test_prefetch_kernel_matches_depth1_bitwise(cuda_device, name, depth):
+    """K1d: staging rings (poisoned with NaN before the first copy) give
+    the depth-1 kernel's and the plain version's pixels, bands with fewer
+    row groups than the depth included."""
+    dag = algorithms.ALGORITHMS[name]()
+    for h, w, r in [(37, 53, 8), (5, 48, 8), (90, 130, 1)]:
+        frames = torch.from_numpy(_frames(9, 3, h, w)).to(cuda_device)
+        frames[1] = 0.0
+        prog = sp.build_program(dag, h, w, r, frames=3,
+                                prefetch_depth=depth, poison_staging=True)
+        base = sp.build_program(dag, h, w, r, frames=3)
+        got = sp.stencil_pipeline(prog, [frames])
+        torch.cuda.synchronize()
+        assert torch.equal(got, sp.stencil_pipeline(base, [frames]))
+        assert torch.equal(got, sp.stencil_pipeline_plain(dag,
+                                                          {"in": frames}))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [2, 4])
+@pytest.mark.parametrize("name,chunk", [(n, 4) for n in VIDEO]
+                         + [("tinternal", None)])
+def test_prefetch_temporal_kernel_matches_plain_bitwise(cuda_device, name,
+                                                        chunk, depth):
+    """K1d on the temporal table: a 12-frame stream at depth d equals the
+    depth-1 executor's output and state at every step."""
+    dag = _tinternal() if name == "tinternal" \
+        else algorithms.VIDEO_ALGORITHMS[name]()
+    h, w = 37, 53
+    vid = torch.from_numpy(_frames(4, 12, h, w)).to(cuda_device)
+    ex = sp.make_video_executor(dag, h, w, rows_per_step=8, chunk=chunk,
+                                prefetch_depth=depth, device=cuda_device)
+    ex1 = sp.make_video_executor(dag, h, w, rows_per_step=8, chunk=chunk,
+                                 device=cuda_device)
+    state = state1 = ex.init_state()
+    step = chunk or 1
+    for t in range(0, 12, step):
+        x = vid[t:t + step] if chunk else vid[t]
+        got, state = ex({"in": x}, state)
+        exp, state1 = ex1({"in": x}, state1)
+        torch.cuda.synchronize()
+        assert torch.equal(got, exp)
+        assert all(torch.equal(state[p], state1[p]) for p in state)
+
+
+@pytest.mark.cuda
+def test_engines_serve_through_the_prefetch_kernel(cuda_device):
+    """FrameEngine (untiled, tiled) and VideoEngine at depth 2 launch the
+    kernel and serve the plain version's pixels."""
+    eng = FrameEngine(max_batch=3, max_pending=16, tile_shape=(40, 48),
+                      prefetch_depth=2, device=cuda_device)
+    reqs = [FrameRequest(rid=i, pipeline=["canny-m", "xcorr-m"][i % 2],
+                         frames={"in": _frames(i, 1, *((50, 70) if i % 3
+                                                       else (24, 32)))[0]})
+            for i in range(8)]
+    before = sp.stencil_pipeline.launches
+    res = eng.run(reqs)
+    assert sp.stencil_pipeline.launches > before
+    for r in reqs:
+        exp = sp.stencil_pipeline_plain(
+            eng.cache.dag_for(r.pipeline),
+            {"in": torch.as_tensor(r.frames["in"], device=cuda_device)})
+        assert torch.equal(res[r.rid], exp)
+    veng = VideoEngine(chunk=4, prefetch_depth=2, device=cuda_device)
+    vid = _frames(6, 10, 40, 56)
+    sid = veng.open_stream("tbackground-t", 40, 56)
+    before = sp.stencil_pipeline.launches
+    out = veng.run({sid: [{"in": f} for f in vid]})
+    assert sp.stencil_pipeline.launches > before
+    exp = algorithms.execute_reference_video(
+        veng.cache.dag_for("tbackground-t"),
+        {"in": torch.from_numpy(vid).to(cuda_device)})
+    assert torch.equal(torch.stack(out[sid]), exp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [(1, 1), (3, 3), (1, 5), (5, 1), (2, 4)])
+def test_conv2d_kernel_matches_plain_bitwise(cuda_device, k):
+    """K2 over the JAX package's sweep shapes: 0 ULP against
+    conv2d_plain, and one launch per call."""
+    rng = np.random.RandomState(1)
+    for h, w in [(8, 16), (20, 24), (13, 130), (9, 257), (1080, 1920)]:
+        img = torch.from_numpy(rng.rand(h, w).astype(np.float32)).to(
+            cuda_device)
+        wts = torch.from_numpy(rng.randn(*k).astype(np.float32)).to(
+            cuda_device)
+        before = conv2d_stencil.conv2d.launches
+        got = ops.conv2d(img, wts)
+        torch.cuda.synchronize()
+        assert conv2d_stencil.conv2d.launches == before + 1
+        assert torch.equal(got, conv2d_stencil.conv2d_plain(img, wts))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 4, 4, 32, 16), (2, 8, 2, 64, 32),
+                                   (3, 8, 1, 16, 64), (8, 4, 1, 256, 512)])
+def test_swa_decode_kernel_matches_plain(cuda_device, shape):
+    """K3 within swa_decode.RTOL / ATOL of its plain version, with an
+    empty ring (zeros) and a wrapped one among the rows."""
+    b, hq, hkv, d, s = shape
+    rng = np.random.RandomState(2)
+    q, k, v = (torch.from_numpy(rng.randn(*sh).astype(np.float32))
+               .to(cuda_device)
+               for sh in ((b, hq, d), (b, s, hkv, d), (b, s, hkv, d)))
+    length = torch.from_numpy(rng.randint(1, s + 1, size=b)
+                              .astype(np.int32)).to(cuda_device)
+    start = torch.from_numpy(rng.randint(0, s, size=b)
+                             .astype(np.int32)).to(cuda_device)
+    length[0] = 0
+    before = swa.swa_decode.launches
+    got = ops.swa_decode(q, k, v, length, start)
+    torch.cuda.synchronize()
+    assert swa.swa_decode.launches == before + 1
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    exp = swa.swa_decode_plain(q, k, v, length, start)
+    torch.testing.assert_close(got, exp, rtol=swa.RTOL, atol=swa.ATOL)
+    half = ops.swa_decode(q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                          length, start)
+    torch.testing.assert_close(
+        half, swa.swa_decode_plain(q.bfloat16().float(), k.bfloat16().float(),
+                                   v.bfloat16().float(), length, start),
+        rtol=swa.RTOL, atol=swa.ATOL)

@@ -5,12 +5,17 @@ few CUDA names. These tests compile the body of
 ``src/repro_torch/kernels/csrc/stencil_pipeline.cu`` with the host C++
 compiler under a small shim: one thread per block (``blockDim`` 1), so
 ``__syncthreads`` is a no-op; the ``_rn`` intrinsics as single float
-operations under ``-ffp-contract=off``. Every CTA of a launch runs in
-turn, its shared memory filled with NaN first, so a read of a ring row
-the CTA never wrote shows in the output. The result must equal
+operations under ``-ffp-contract=off``; the asynchronous copies of the
+prefetch path as synchronous copies (or zero fills), their commit and
+wait as no-ops. Every CTA of a launch runs in turn, its shared memory
+filled with NaN first, so a read of a ring row or staging slot the CTA
+never wrote shows in the output. The result must equal
 ``stencil_pipeline_plain`` bitwise (``video_pipeline_plain`` for a
 temporal pipeline, over random frame-ring states), as the kernel must
 on the card.
+
+The conv2d kernel (``csrc/conv2d_stencil.cu``) compiles under the same
+shim and must equal ``conv2d_plain`` bitwise.
 
 This checks the kernel's index math, rings, halos, masks and operand
 table at launch geometries the card's tests do not reach; the threads
@@ -27,6 +32,7 @@ import torch
 
 from repro_torch.core import algorithms, compile_pipeline
 from repro_torch.core.dsl import Pipeline
+from repro_torch.kernels import conv2d_stencil
 from repro_torch.kernels import stencil_pipeline as sp
 from repro_torch.kernels._build import CSRC
 
@@ -49,6 +55,7 @@ _SHIM = r"""
 #include <cstddef>
 #include <cstring>
 #include <vector>
+#define STENCIL_HOST_SHIM
 using std::max;
 using std::min;
 struct Dim3 { int x, y, z; };
@@ -64,6 +71,12 @@ static float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 static float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 static float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
 static float __fsqrt_rn(float a) { return std::sqrt(a); }
+static float __int_as_float(int i) { float f; memcpy(&f, &i, 4); return f; }
+static void cp_async4(float* dst, const float* src, bool ok) {
+  *dst = ok ? *src : 0.f;
+}
+static void cp_async_commit() {}
+static void cp_async_wait(int) {}
 """
 
 _LAUNCHER = r"""
@@ -87,31 +100,49 @@ extern "C" void host_launch(const int* table, const float* wts,
       for (int x = 0; x < gx; ++x) {
         std::fill(sm.begin(), sm.end(), NAN);
         blockIdx = Dim3{x, y, z};
-        if (P.hdr[H_TEMPORAL])
-          stencil_pipeline_kernel<true>(P, F, O);
-        else
-          stencil_pipeline_kernel<false>(P, F, O);
+        pick_kernel(P.hdr[H_TEMPORAL], P.hdr[H_DEPTH] > 1)(P, F, O);
       }
 }
 """
 
 
-@pytest.fixture(scope="module")
-def host_kernel(tmp_path_factory):
+_CONV_LAUNCHER = r"""
+extern "C" void host_conv2d(const float* img, const float* wts, float* out,
+                            int h, int w, int kh, int kw, int tr) {
+  std::vector<float> sm(kh * kw + (tr + kh - 1) * (kStripW + kw - 1));
+  g_smem = sm.data();
+  for (int y = 0; y < (h + tr - 1) / tr; ++y)
+    for (int x = 0; x < (w + kStripW - 1) / kStripW; ++x) {
+      std::fill(sm.begin(), sm.end(), NAN);
+      blockIdx = Dim3{x, y, 0};
+      conv2d_kernel(img, wts, out, h, w, kh, kw, tr);
+    }
+}
+"""
+
+
+def _host_library(tmp_path_factory, source: str, launcher: str):
+    """``csrc/<source>``'s kernel body compiled for the host under the
+    shim, with ``launcher`` appended."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler")
-    src = (CSRC / "stencil_pipeline.cu").read_text()
+    src = (CSRC / source).read_text()
     body = src[src.index("namespace {"):src.index("}  // namespace")]
     decl = "extern __shared__ float smem[];"
     assert decl in body
     body = body.replace(decl, "float* smem = g_smem;")
     d = tmp_path_factory.mktemp("host_kernel")
-    (d / "k.cpp").write_text(_SHIM + body + "}  // namespace\n" + _LAUNCHER)
+    (d / "k.cpp").write_text(_SHIM + body + "}  // namespace\n" + launcher)
     subprocess.run([cxx, "-O1", "-std=c++17", "-ffp-contract=off",
                     "-shared", "-fPIC", "-o", str(d / "k.so"),
                     str(d / "k.cpp")], check=True, capture_output=True)
-    lib = ctypes.CDLL(str(d / "k.so"))
+    return ctypes.CDLL(str(d / "k.so"))
+
+
+@pytest.fixture(scope="module")
+def host_kernel(tmp_path_factory):
+    lib = _host_library(tmp_path_factory, "stencil_pipeline.cu", _LAUNCHER)
     lib.host_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
     lib.host_launch.restype = None
 
@@ -196,3 +227,125 @@ def test_host_compiled_temporal_kernel_matches_plain(host_kernel, name,
                         assert np.array_equal(got_frames[p],
                                               frames[p].numpy()), where
                 assert np.array_equal(got, out.numpy()), where
+
+
+def _n_steps(prog, y):
+    """Row groups of the band starting at row ``y``."""
+    up = int(prog.table[sp.H_HALO_UP])
+    lo, hi = max(y - up, 0), min(y + prog.band_h, prog.h)
+    return -(-(hi - lo) // prog.rows_per_step)
+
+
+@pytest.mark.parametrize("depth", [2, 4])
+@pytest.mark.parametrize("strip_w,target_ctas", [
+    (sp.STRIP_W, sp.TARGET_CTAS),   # the executors' geometry
+    (16, 64),                       # many strips and bands
+    (7, 1),                         # strips narrower than the halo
+])
+@pytest.mark.parametrize("name", NAMES)
+def test_host_compiled_prefetch_kernel_matches_plain(host_kernel, name,
+                                                     strip_w, target_ctas,
+                                                     depth):
+    """Prefetch depth 2 and 4: every feed read through its staging ring
+    (slot t % depth, refilled with step t + depth) equals the plain
+    version bitwise, bands with fewer row groups than the depth
+    included."""
+    dag = algorithms.ALGORITHMS[name]()
+    rng = np.random.RandomState(12)
+    short = False
+    for h, w in [(37, 53), (5, 48), (70, 40)]:
+        plan = compile_pipeline(dag, w)
+        for r in (1, 3, 8):
+            x = rng.rand(3, h, w).astype(np.float32)
+            x[1] = 0.0                                    # idle slot
+            prog = sp.build_program(dag, h, w, r, frames=3,
+                                    alloc_buffers=plan.alloc.buffers,
+                                    strip_w=strip_w, target_ctas=target_ctas,
+                                    prefetch_depth=depth,
+                                    poison_staging=r == 3)
+            assert prog.staging_bytes == depth * r * int(
+                prog.table[sp.H_NCOLS]) * 4
+            short |= any(_n_steps(prog, y) < depth
+                         for y in range(0, h, prog.band_h))
+            exp = sp.stencil_pipeline_plain(dag, {"in": torch.from_numpy(x)})
+            got = host_kernel(prog, x)
+            assert np.array_equal(got, exp.numpy()), \
+                (name, (h, w), r, depth, strip_w, target_ctas, prog.band_h)
+    assert short
+
+
+@pytest.mark.parametrize("depth", [2, 4])
+@pytest.mark.parametrize("strip_w,target_ctas", [
+    (sp.STRIP_W, sp.TARGET_CTAS),   # the executors' geometry
+    (7, 1),                         # strips narrower than the halo
+])
+@pytest.mark.parametrize("name", VIDEO + ["tinternal"])
+def test_host_compiled_prefetch_temporal_kernel_matches_plain(
+        host_kernel, name, strip_w, target_ctas, depth):
+    """Prefetch depth 2 and 4 on the temporal table: inputs and every
+    history tap (launch frames and random frame-ring states) staged
+    through their own rings; output and frame outputs equal the plain
+    version bitwise."""
+    dag = _tinternal() if name == "tinternal" \
+        else algorithms.VIDEO_ALGORITHMS[name]()
+    depths = dag.temporal_depths()
+    rng = np.random.RandomState(6)
+    batches = (1,) if name == "tinternal" else (1, 4)
+    for h, w in [(13, 24), (37, 53)]:
+        plan = compile_pipeline(dag, w)
+        for r in (1, 3, 8):
+            for b in batches:
+                x = rng.rand(b, h, w).astype(np.float32)
+                states = [rng.rand(depths[p] - 1, h, w).astype(np.float32)
+                          for p in sorted(depths,
+                                          key=dag.topo_order.index)]
+                prog = sp.build_program(dag, h, w, r, frames=b,
+                                        alloc_buffers=plan.alloc.buffers,
+                                        strip_w=strip_w,
+                                        target_ctas=target_ctas,
+                                        prefetch_depth=depth)
+                n_feeds = len(prog.feeds) + len(sp.temporal_taps(dag))
+                assert prog.staging_bytes == n_feeds * depth * r * int(
+                    prog.table[sp.H_NCOLS]) * 4
+                inputs = {"in": torch.from_numpy(x)}
+                ring = {p: torch.from_numpy(a)
+                        for p, a in zip(prog.states, states)}
+                out, frames = sp.video_pipeline_plain(
+                    dag, {**inputs, **sp.tap_feeds(dag, inputs, ring, b)})
+                got = host_kernel(prog, x, states)
+                where = (name, (h, w), r, b, depth, strip_w, target_ctas)
+                if prog.frame_outs:
+                    got, got_frames = got
+                    for p in prog.frame_outs:
+                        assert np.array_equal(got_frames[p],
+                                              frames[p].numpy()), where
+                assert np.array_equal(got, out.numpy()), where
+
+
+@pytest.fixture(scope="module")
+def host_conv2d(tmp_path_factory):
+    lib = _host_library(tmp_path_factory, "conv2d_stencil.cu",
+                        _CONV_LAUNCHER)
+    lib.host_conv2d.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+    lib.host_conv2d.restype = None
+    return lib.host_conv2d
+
+
+@pytest.mark.parametrize("tile_rows", [1, 3, 8])
+@pytest.mark.parametrize("k", [(1, 1), (3, 3), (1, 5), (5, 1), (2, 4)])
+def test_host_compiled_conv2d_matches_plain(host_conv2d, k, tile_rows):
+    """The conv2d kernel over frames narrower and wider than one strip,
+    with h % tile_rows != 0, equals conv2d_plain bitwise."""
+    assert conv2d_stencil.smem_bytes(*k, tile_rows) == 4 * (
+        k[0] * k[1] + (tile_rows + k[0] - 1)
+        * (conv2d_stencil.STRIP_W + k[1] - 1))
+    rng = np.random.RandomState(3)
+    for h, w in [(8, 16), (20, 24), (13, 130), (9, 257)]:
+        img = rng.rand(h, w).astype(np.float32)
+        wts = rng.randn(*k).astype(np.float32)
+        out = np.full((h, w), np.float32(-7.0))
+        host_conv2d(img.ctypes.data, wts.ctypes.data, out.ctypes.data,
+                    h, w, k[0], k[1], tile_rows)
+        exp = conv2d_stencil.conv2d_plain(torch.from_numpy(img),
+                                          torch.from_numpy(wts))
+        assert np.array_equal(out, exp.numpy()), ((h, w), k, tile_rows)

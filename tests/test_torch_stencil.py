@@ -229,7 +229,7 @@ def test_build_program_rejects_what_the_kernel_cannot_run():
 def test_make_executor_refuses_unported_modes():
     dag = algorithms.unsharp_m()
     with pytest.raises(ValueError, match="prefetch_depth"):
-        sp.make_executor(dag, 8, 24, prefetch_depth=2, device="cpu")
+        sp.make_executor(dag, 8, 24, prefetch_depth=0, device="cpu")
     p = Pipeline("temporal")
     x = p.input("in")
     y = p.stage("y", [(x, 2, 1, 1)], algorithms.identity_fn)
