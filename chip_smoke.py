@@ -43,16 +43,23 @@ inputs. Each phase prints one JSON line:
                step; FrameEngine and VideoEngine serving at depth 2; then
                per-pipeline kernel times at depth 1, 2 and 4 with shared
                memory per CTA and CTAs per SM;
-  9. conv2d  — the conv2d kernel through ``kernels.ops.conv2d`` on a
-               1080p frame with 3x3 and 5x5 filters and the JAX package's
-               sweep shapes, against ``conv2d_plain``; kernel / plain /
-               bound / ``F.conv2d`` times at 1080p;
- 10. swa_decode — the swa_decode kernel through ``kernels.ops.swa_decode``
-               at gemma3-1b's local-attention shape (Hq=4, Hkv=1, D=256,
-               window 512) and a decode batch of 64, an empty and wrapped
-               rings among the rows, and the JAX package's sweep shapes,
-               against ``swa_decode_plain``; kernel / plain / bound / SDPA
-               times;
+  9. conv2d  — the conv2d kernels through ``kernels.ops.conv2d`` on a
+               1080p frame with 3x3 and 5x5 filters (the row-streaming
+               kernel; the launch names the instantiation it ran) and the
+               JAX package's sweep shapes, against ``conv2d_plain``;
+               kernel / plain / bound / ``F.conv2d`` times at 1080p, each
+               per call (CUDA events) and on the device (profiler), with
+               the band, columns per thread and registers;
+ 10. swa_decode — the swa_decode kernels (split, then combine) through
+               ``kernels.ops.swa_decode`` at gemma3-1b's local-attention
+               shape (Hq=4, Hkv=1, D=256, window 512) and a decode batch
+               of 64, an empty, a wrapped and a half-filled ring among the
+               rows, and at Mixtral-8x22b's sliding-window layer (B=8,
+               Hq=48, Hkv=8, D=128, window 4096; a one-slot ring, one
+               shorter than a split, and a wrap inside a split among the
+               rows), and the JAX package's sweep shapes, against
+               ``swa_decode_plain``; kernel / plain / bound / SDPA times per
+               call and on the device, with the split count and CTAs;
  11. kernels — one line per kernel path: route, source, launches, error
                and times.
 
@@ -81,6 +88,10 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+# per call (CUDA events) and device (profiler) milliseconds
+from repro_torch.perf.timing import device_ms  # noqa: E402
+from repro_torch.perf.timing import event_ms as cuda_ms  # noqa: E402
+
 TOLERANCE_ULP = 0
 SHAPES = [(37, 53), (5, 48), (320, 480), (1080, 1920)]
 SERVE_H, SERVE_W, SERVE_B, SERVE_R = 1080, 1920, 4, 8
@@ -101,6 +112,9 @@ CONV_SWEEP = ([(8, 16), (20, 24), (13, 130), (9, 257)],
 # gemma3-1b local attention (src/repro/configs/gemma3_1b.py): Hq=4, Hkv=1,
 # head_dim 256, sliding window 512; a decode batch of 64
 SWA_SHAPE = (64, 4, 1, 256, 512)                 # B, Hq, Hkv, D, S
+# Mixtral-8x22b's sliding-window layer (src/repro/configs/mixtral_8x22b.py):
+# 48 heads, 8 kv heads, head dim 6144 / 48, window 4096; a decode batch of 8
+SWA_SHAPE_2 = (8, 48, 8, 128, 4096)
 SWA_SWEEP = [(1, 4, 4, 32, 16), (2, 8, 2, 64, 32), (3, 8, 1, 16, 64)]
 
 
@@ -137,21 +151,6 @@ def ulp_err(got: torch.Tensor, exp: torch.Tensor) -> tuple[float, float]:
     err = (got - exp).abs().max().item()
     scale = float(np.spacing(np.float32(exp.abs().max().item())))
     return err, err / scale
-
-
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean milliseconds per call of ``fn`` from CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def tinternal():
@@ -607,8 +606,16 @@ def depth_phase(dev, mem_rate: float, flop_rate: float, sms: int) -> dict:
                                        for p in spatial) else "operations"}
 
 
+def _registers(lib: str, pattern: str) -> dict | None:
+    """ptxas's registers and spill bytes of the one entry function of
+    library ``lib`` whose mangled name holds ``pattern``."""
+    from repro_torch.kernels import _build
+    hits = [v for k, v in _build.ptxas(lib).items() if pattern in k]
+    return hits[0] if len(hits) == 1 else None
+
+
 def conv2d_phase(dev, mem_rate: float, flop_rate: float) -> dict:
-    """Phase 9: the conv2d kernel (K2). Returns the kernels-line entry."""
+    """Phase 9: the conv2d kernels (K2). Returns the kernels-line entry."""
     import torch.nn.functional as F
     from repro_torch.kernels import conv2d_stencil, ops
     rng = np.random.RandomState(SEED + 9)
@@ -617,11 +624,17 @@ def conv2d_phase(dev, mem_rate: float, flop_rate: float) -> dict:
     wts = [torch.from_numpy(rng.randn(*k).astype(np.float32)).to(dev)
            for k in CONV_FILTERS]
     conv2d_stencil.conv2d.launches = 0
-    outs = [ops.conv2d(img, wt, device=dev) for wt in wts]
+    outs, variants = [], []
+    for (kh, kw), wt in zip(CONV_FILTERS, wts):
+        outs.append(ops.conv2d(img, wt, device=dev))
+        variants.append(f"conv2d_rows<{kh}, {kw}, {conv2d_stencil.COLS}> "
+                        f"({conv2d_stencil.conv2d.variant})")
     torch.cuda.synchronize()
     launches = conv2d_stencil.conv2d.launches
     if launches != len(wts):
         fail(f"ops.conv2d launched the kernel {launches} times")
+    if not all(v.endswith("(rows_vector)") for v in variants):
+        fail(f"the 1080p filters ran {variants}, not the row kernel")
     max_err, max_ulp = 0.0, 0.0
     checks = [(img, wt, out) for wt, out in zip(wts, outs)]
     for h, w in CONV_SWEEP[0]:
@@ -639,38 +652,48 @@ def conv2d_phase(dev, mem_rate: float, flop_rate: float) -> dict:
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False        # a float32 yardstick
     try:
-        for (kh, kw), wt in zip(CONV_FILTERS, wts):
+        for (kh, kw), wt, variant in zip(CONV_FILTERS, wts, variants):
             padded = F.pad(img, (kw - 1, 0, kh - 1, 0))[None, None]
             nbytes = 2 * SERVE_H * SERVE_W * 4 + kh * kw * 4
             ops_n = 2 * kh * kw * SERVE_H * SERVE_W
             t_bytes, t_ops = nbytes / mem_rate * 1e3, ops_n / flop_rate * 1e3
             lib = F.conv2d(padded, wt[None, None])[0, 0]
+
+            def kernel():
+                return conv2d_stencil.conv2d(img, wt)
+
+            def library():
+                return F.conv2d(padded, wt[None, None])
             per[f"{kh}x{kw}"] = {
-                "ms": cuda_ms(lambda: conv2d_stencil.conv2d(img, wt),
-                              iters=50),
+                "ms": cuda_ms(kernel, iters=50),
+                "device_ms": device_ms(kernel, 50)[0],
                 "plain_ms": cuda_ms(lambda: conv2d_stencil.conv2d_plain(
                     img, wt), iters=5, warmup=1),
-                "library_ms": cuda_ms(lambda: F.conv2d(padded,
-                                                       wt[None, None]),
-                                      iters=50),
-                "library_max_abs_diff": (lib - conv2d_stencil.conv2d(
-                    img, wt)).abs().max().item(),
+                "library_ms": cuda_ms(library, iters=50),
+                "library_device_ms": device_ms(library, 50)[0],
+                "library_max_abs_diff": (lib - kernel()).abs().max().item(),
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "bytes": nbytes, "ops": ops_n,
+                "bytes": nbytes, "ops": ops_n, "variant": variant,
+                "band": 8,  # ops.conv2d's default tile_rows
+                "cols": conv2d_stencil.COLS,
+                "ptxas": _registers("conv2d_stencil",
+                                    f"conv2d_rowsILi{kh}ELi{kw}ELi"
+                                    f"{conv2d_stencil.COLS}E"),
                 "smem_bytes": conv2d_stencil.smem_bytes(kh, kw, 8)}
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
     emit("conv2d", kernel="conv2d", shape=[SERVE_H, SERVE_W],
          filters=[list(k) for k in CONV_FILTERS], launches=launches,
-         sweep_shapes=[list(s) for s in CONV_SWEEP[0]],
+         variants=variants, sweep_shapes=[list(s) for s in CONV_SWEEP[0]],
          sweep_filters=[list(k) for k in CONV_SWEEP[1]], cases=len(checks),
          max_abs_err=max_err, max_ulp=max_ulp, tolerance_ulp=TOLERANCE_ULP,
          cudnn_allow_tf32=False, per_filter=per)
     return {"launches": launches, "max_abs_err": max_err,
-            "max_ulp": max_ulp,
+            "max_ulp": max_ulp, "variants": variants,
             **{k: sum(p[k] for p in per.values())
-               for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+               for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                         "library_ms", "library_device_ms")},
             "bound_by": "bytes" if all(p["bound_by"] == "bytes"
                                        for p in per.values())
             else "operations"}
@@ -686,30 +709,42 @@ def swa_inputs(shape, rng, dev):
 
 
 def swa_phase(dev, mem_rate: float, flop_rate: float) -> dict:
-    """Phase 10: the swa_decode kernel (K3). Returns the kernels-line
+    """Phase 10: the swa_decode kernels (K3). Returns the kernels-line
     entry."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     from repro_torch.kernels import swa_decode as swa
     rng = np.random.RandomState(SEED + 10)
-    b, hq, hkv, d, s = SWA_SHAPE
-    q, k, v, _, _ = swa_inputs(SWA_SHAPE, rng, dev)
-    # a full window on most rows (steady decode), an empty ring, a ring
-    # that wraps, and a half-filled one
-    length = np.full(b, s, np.int32)
-    start = rng.randint(0, s, size=b).astype(np.int32)
-    length[0], length[1], start[1] = 0, s // 2, s - 3
-    length_t = torch.from_numpy(length).to(dev)
-    start_t = torch.from_numpy(start).to(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    main = []                      # (shape, q, k, v, length, ring_start)
+    for shape in (SWA_SHAPE, SWA_SHAPE_2):
+        b, hq, hkv, d, s = shape
+        q, k, v, _, _ = swa_inputs(shape, rng, dev)
+        # a full window on most rows (steady decode)
+        length = np.full(b, s, np.int32)
+        start = rng.randint(0, s, size=b).astype(np.int32)
+        if shape == SWA_SHAPE:
+            # an empty ring, a ring that wraps, and a half-filled one
+            length[0], length[1], start[1] = 0, s // 2, s - 3
+        else:
+            # a one-slot ring, one shorter than a split, and a wrap that
+            # falls inside a split
+            _, chunk = swa.split_plan(b, hkv, hq // hkv, s, d, sms)
+            length[0], length[1], start[2] = 1, chunk // 2, s - chunk // 3
+        main.append((shape, q, k, v, torch.from_numpy(length).to(dev),
+                     torch.from_numpy(start).to(dev)))
     swa.swa_decode.launches = 0
-    got = ops.swa_decode(q, k, v, length_t, start_t, device=dev)
+    outs, splits = [], []
+    for _, q, k, v, ln, st in main:
+        outs.append(ops.swa_decode(q, k, v, ln, st, device=dev))
+        splits.append(swa.swa_decode.splits)
     torch.cuda.synchronize()
     launches = swa.swa_decode.launches
-    if launches != 1:
+    if launches != len(main):
         fail(f"ops.swa_decode launched the kernel {launches} times")
-    if not torch.equal(got[0], torch.zeros_like(got[0])):
+    if not torch.equal(outs[0][0], torch.zeros_like(outs[0][0])):
         fail("swa_decode: an empty ring did not give zeros")
-    checks = [(SWA_SHAPE, got, (q, k, v, length_t, start_t))]
+    checks = [(m[0], out, m[1:]) for m, out in zip(main, outs)]
     for shape in SWA_SWEEP:
         q2, k2, v2, ln, st = swa_inputs(shape, rng, dev)
         ln[0] = 0
@@ -724,30 +759,58 @@ def swa_phase(dev, mem_rate: float, flop_rate: float) -> dict:
             fail(f"swa_decode {shape}: kernel differs from plain by "
                  f"{(out - exp).abs().max().item()}")
         max_err = max(max_err, (out - exp).abs().max().item())
-    # bytes: q and out once, K and V rows of the valid slots once
-    valid = int(np.minimum(length, s).sum())
-    nbytes = 2 * valid * hkv * d * 4 + 2 * b * hq * d * 4 + 2 * b * 4
-    ops_n = 4 * valid * hq * d
-    t_bytes, t_ops = nbytes / mem_rate * 1e3, ops_n / flop_rate * 1e3
-    mask = swa.ring_valid(length_t, start_t, s)[:, None, None, :]
-    qs, ks, vs = q[:, :, None], k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
-    per = {
-        "ms": cuda_ms(lambda: swa.swa_decode(q, k, v, length_t, start_t),
-                      iters=50),
-        "plain_ms": cuda_ms(lambda: swa.swa_decode_plain(
-            q, k, v, length_t, start_t), iters=10),
-        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, attn_mask=mask, enable_gqa=True), iters=50),
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "bytes": nbytes, "ops": ops_n, "valid_slots": valid,
-        "smem_bytes": swa.smem_bytes(hq // hkv, s, d), "ctas": b * hkv}
-    emit("swa_decode", kernel="swa_decode", shape=list(SWA_SHAPE),
-         shape_is="B, Hq, Hkv, D, S (gemma3-1b local layers)",
+    per = {}
+    for (shape, q, k, v, ln, st), n_splits in zip(main, splits):
+        b, hq, hkv, d, s = shape
+        g = hq // hkv
+        # bytes: q and out once, K and V rows of the valid slots once
+        valid = int(ln.clamp(0, s).sum().item())
+        nbytes = 2 * valid * hkv * d * 4 + 2 * b * hq * d * 4 + 2 * b * 4
+        ops_n = 4 * valid * hq * d
+        t_bytes, t_ops = nbytes / mem_rate * 1e3, ops_n / flop_rate * 1e3
+        mask = swa.ring_valid(ln, st, s)[:, None, None, :]
+        qs, ks, vs = (q[:, :, None], k.permute(0, 2, 1, 3),
+                      v.permute(0, 2, 1, 3))
+
+        def kernel():
+            return swa.swa_decode(q, k, v, ln, st)
+
+        def library():
+            return F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask, enable_gqa=True)
+        gp = swa.rows_per_pass(g, d)
+        p = swa.share(d)
+        per["x".join(map(str, shape))] = {
+            "shape": list(shape),
+            "ms": cuda_ms(kernel, iters=50),
+            "device_ms": device_ms(kernel, 50)[0],
+            "plain_ms": cuda_ms(lambda: swa.swa_decode_plain(
+                q, k, v, ln, st), iters=10),
+            "library_ms": cuda_ms(library, iters=50),
+            "library_device_ms": device_ms(library, 50)[0],
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "ops": ops_n, "valid_slots": valid,
+            "splits": n_splits, "rows_per_pass": gp,
+            "ctas": n_splits * hkv * -(-g // gp) * b,
+            "ptxas": _registers("swa_decode",
+                                f"swa_split_kernelILi{gp}ELi{p}ELb1E"),
+            "smem_bytes": swa.smem_bytes(g, d)}
+    emit("swa_decode", kernel="swa_decode",
+         shapes=[list(m[0]) for m in main],
+         shapes_are="B, Hq, Hkv, D, S (gemma3-1b local layers; "
+                    "Mixtral-8x22b sliding-window layer)",
          sweep_shapes=[list(x) for x in SWA_SWEEP], launches=launches,
          cases=len(checks), max_abs_err=max_err,
-         tolerance={"rtol": swa.RTOL, "atol": swa.ATOL}, **per)
-    return {"launches": launches, "max_abs_err": max_err, **per}
+         tolerance={"rtol": swa.RTOL, "atol": swa.ATOL}, per_shape=per)
+    return {"launches": launches, "max_abs_err": max_err,
+            "splits": splits,
+            **{k: sum(p[k] for p in per.values())
+               for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                         "library_ms", "library_device_ms")},
+            "bound_by": "bytes" if all(p["bound_by"] == "bytes"
+                                       for p in per.values())
+            else "operations"}
 
 
 def main() -> None:
@@ -781,8 +844,14 @@ def main() -> None:
     t0 = time.perf_counter()
     libs = _build.build("stencil_pipeline", "conv2d_stencil", "swa_decode")
     build_s = time.perf_counter() - t0
-    ptxas = {n: [ln.strip() for ln in log.splitlines() if "registers" in ln]
-             for n, log in _build.BUILD_LOG.items()}
+    ptxas = {}
+    for n in libs:
+        rep = _build.ptxas(n).values()
+        ptxas[n] = {"kernels": len(rep),
+                    "max_registers": max((r.get("registers", 0)
+                                          for r in rep), default=None),
+                    "spill_bytes": sum(r.get("spill_bytes", 0)
+                                       for r in rep)}
     emit("build", seconds=build_s, flags=list(_build.NVCC_FLAGS),
          libraries={n: os.path.relpath(p, ROOT) for n, p in libs.items()},
          ptxas=ptxas)
@@ -970,7 +1039,8 @@ def main() -> None:
         "replaces": "src/repro/kernels/conv2d_stencil.py:52",
         **{key: k2[key] for key in ("launches", "max_abs_err", "max_ulp",
                                     "ms", "plain_ms", "bound_ms",
-                                    "bound_by", "library_ms")},
+                                    "bound_by", "library_ms", "device_ms",
+                                    "library_device_ms", "variants")},
         "library": "torch.nn.functional.conv2d, cudnn TF32 off",
         "timed_on": f"a {SERVE_H}x{SERVE_W} frame with a 3x3 and a 5x5 "
                     f"filter, summed",
@@ -980,11 +1050,13 @@ def main() -> None:
         "replaces": "src/repro/kernels/swa_decode.py:66",
         **{key: k3[key] for key in ("launches", "max_abs_err", "ms",
                                     "plain_ms", "bound_ms", "bound_by",
-                                    "library_ms")},
+                                    "library_ms", "device_ms",
+                                    "library_device_ms", "splits")},
         "library": "torch.nn.functional.scaled_dot_product_attention, "
                    "boolean ring mask, enable_gqa",
         "timed_on": "B=64, Hq=4, Hkv=1, D=256, S=512 (gemma3-1b local "
-                    "layers)",
+                    "layers) and B=8, Hq=48, Hkv=8, D=128, S=4096 "
+                    "(Mixtral-8x22b sliding-window layer), summed",
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,8 @@
 """Device resolution for the port's entry points."""
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -24,3 +26,18 @@ def synchronize(device: torch.device) -> None:
     """Wait for the device's queued work (a no-op on the CPU)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def launch_context(index: int):
+    """Make card ``index`` current for a kernel launch: a no-op context
+    when it already is, which saves two device switches per launch."""
+    if index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(index)
+
+
+def raw_stream(index: int) -> int:
+    """The cudaStream_t of card ``index``'s current stream, as an int.
+    ``torch.cuda.current_stream`` builds a Stream object on every call;
+    a launch needs only the handle."""
+    return torch._C._cuda_getCurrentRawStream(index)

@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -89,3 +90,24 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         lib = _LIBS[name] = ctypes.CDLL(str(build(name)[name]))
     return lib
+
+
+def ptxas(name: str) -> dict[str, dict[str, int]]:
+    """{entry function (mangled): {"registers": n, "spill_bytes": n}} from
+    ptxas's report on the build of kernel ``name`` in this process (empty
+    when the library was loaded, not built)."""
+    out: dict[str, dict[str, int]] = {}
+    entry = None
+    for ln in BUILD_LOG.get(name, "").splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            entry = out.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and entry is not None:
+            entry["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and entry is not None:
+            entry["registers"] = int(m.group(1))
+    return out

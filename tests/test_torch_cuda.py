@@ -221,10 +221,12 @@ def test_engines_serve_through_the_prefetch_kernel(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [(1, 1), (3, 3), (1, 5), (5, 1), (2, 4)])
+@pytest.mark.parametrize("k", [(1, 1), (3, 3), (1, 5), (5, 1), (2, 4), (5, 5),
+                               (7, 7), (4, 6), (9, 9)])
 def test_conv2d_kernel_matches_plain_bitwise(cuda_device, k):
-    """K2 over the JAX package's sweep shapes: 0 ULP against
-    conv2d_plain, and one launch per call."""
+    """K2 over the JAX package's sweep shapes and 1080p: 0 ULP against
+    conv2d_plain, one launch per call, and the kernel the filter and the
+    row width call for (vector rows where w % 4 == 0)."""
     rng = np.random.RandomState(1)
     for h, w in [(8, 16), (20, 24), (13, 130), (9, 257), (1080, 1920)]:
         img = torch.from_numpy(rng.rand(h, w).astype(np.float32)).to(
@@ -236,30 +238,73 @@ def test_conv2d_kernel_matches_plain_bitwise(cuda_device, k):
         torch.cuda.synchronize()
         assert conv2d_stencil.conv2d.launches == before + 1
         assert torch.equal(got, conv2d_stencil.conv2d_plain(img, wts))
+        assert conv2d_stencil.conv2d.variant == (
+            "tile" if not conv2d_stencil.uses_rows(*k)
+            else "rows_vector" if w % 4 == 0 else "rows_scalar")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cols", [1, 2, 4])
+@pytest.mark.parametrize("k", [(3, 3), (5, 5)])
+def test_conv2d_launch_geometries_match_plain_bitwise(cuda_device, k, cols):
+    """The 1080p filters at every band height and column count the
+    launch-geometry sweep times, on a frame and on an unaligned view."""
+    rng = np.random.RandomState(5)
+    wts = torch.from_numpy(rng.randn(*k).astype(np.float32)).to(cuda_device)
+    img = torch.from_numpy(rng.rand(135, 1924).astype(np.float32)).to(
+        cuda_device)
+    for x in (img[:, :1920].contiguous(), img.view(-1)[1:1 + 135 * 1920]
+              .view(135, 1920)):
+        exp = conv2d_stencil.conv2d_plain(x, wts)
+        for band in (4, 8, 16, 32, 64):
+            got = conv2d_stencil.conv2d.launch(x, wts, band, cols)
+            assert torch.equal(got, exp), (band, cols)
+            aligned = x.data_ptr() % 16 == 0
+            assert conv2d_stencil.conv2d.variant == (
+                "rows_vector" if cols > 1 and aligned else "rows_scalar")
+
+
+def _swa_rings(b, s, chunk, rng):
+    """(length, ring_start) with an empty ring and, where the batch has
+    the rows, a one-slot ring, one shorter than a split, and a wrap that
+    falls inside a split."""
+    length = rng.randint(1, s + 1, size=b).astype(np.int32)
+    start = rng.randint(0, s, size=b).astype(np.int32)
+    length[0] = 0
+    special = [(1, 0), (max(chunk // 2, 1), s - 1), (s, s - chunk // 3)]
+    for row, (ln, st) in enumerate(special[:b - 1], start=1):
+        length[row], start[row] = ln, st
+    return length, start
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(1, 4, 4, 32, 16), (2, 8, 2, 64, 32),
-                                   (3, 8, 1, 16, 64), (8, 4, 1, 256, 512)])
+                                   (3, 8, 1, 16, 64), (8, 4, 1, 256, 512),
+                                   (8, 48, 8, 128, 4096)])
 def test_swa_decode_kernel_matches_plain(cuda_device, shape):
     """K3 within swa_decode.RTOL / ATOL of its plain version, with an
-    empty ring (zeros) and a wrapped one among the rows."""
+    empty ring (zeros), a one-slot ring, one shorter than a split, a wrap
+    inside a split and wrapped ones among the rows; the gemma3-1b and
+    Mixtral-8x22b shapes run several splits."""
     b, hq, hkv, d, s = shape
     rng = np.random.RandomState(2)
     q, k, v = (torch.from_numpy(rng.randn(*sh).astype(np.float32))
                .to(cuda_device)
                for sh in ((b, hq, d), (b, s, hkv, d), (b, s, hkv, d)))
-    length = torch.from_numpy(rng.randint(1, s + 1, size=b)
-                              .astype(np.int32)).to(cuda_device)
-    start = torch.from_numpy(rng.randint(0, s, size=b)
-                             .astype(np.int32)).to(cuda_device)
-    length[0] = 0
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    splits, chunk = swa.split_plan(b, hkv, hq // hkv, s, d, sms)
+    ln, st = _swa_rings(b, s, chunk, rng)
+    length = torch.from_numpy(ln).to(cuda_device)
+    start = torch.from_numpy(st).to(cuda_device)
     before = swa.swa_decode.launches
     got = ops.swa_decode(q, k, v, length, start)
     torch.cuda.synchronize()
     assert swa.swa_decode.launches == before + 1
+    assert swa.swa_decode.splits == splits
+    assert s < 512 or splits > 1
     assert torch.equal(got[0], torch.zeros_like(got[0]))
     exp = swa.swa_decode_plain(q, k, v, length, start)
+    assert torch.isfinite(got).all()
     torch.testing.assert_close(got, exp, rtol=swa.RTOL, atol=swa.ATOL)
     half = ops.swa_decode(q.bfloat16(), k.bfloat16(), v.bfloat16(),
                           length, start)
@@ -267,3 +312,52 @@ def test_swa_decode_kernel_matches_plain(cuda_device, shape):
         half, swa.swa_decode_plain(q.bfloat16().float(), k.bfloat16().float(),
                                    v.bfloat16().float(), length, start),
         rtol=swa.RTOL, atol=swa.ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 8, 2, 64, 96), (4, 6, 1, 128, 512),
+                                   (3, 16, 1, 256, 64), (2, 4, 1, 512, 64),
+                                   (3, 4, 2, 30, 40)])
+def test_swa_decode_split_counts_match_plain(cuda_device, shape):
+    """Every split count from one to one position per split, query
+    groups over one pass (G=16) and head dims of every lane share (64,
+    128, 256, 512, and 30: the scalar path), with empty splits and
+    wraps inside and on split boundaries."""
+    b, hq, hkv, d, s = shape
+    rng = np.random.RandomState(3)
+    q, k, v = (torch.from_numpy(rng.randn(*sh).astype(np.float32))
+               .to(cuda_device)
+               for sh in ((b, hq, d), (b, s, hkv, d), (b, s, hkv, d)))
+    for want in (1, 2, 3, 8, s):
+        chunk = -(-s // want)
+        ln, st = _swa_rings(b, s, chunk, rng)
+        length = torch.from_numpy(ln).to(cuda_device)
+        start = torch.from_numpy(st).to(cuda_device)
+        got = swa.swa_decode.launch(q, k, v, length, start, -(-s // chunk),
+                                    chunk)
+        exp = swa.swa_decode_plain(q, k, v, length, start)
+        assert torch.isfinite(got).all() and torch.equal(
+            got[0], torch.zeros_like(got[0]))
+        torch.testing.assert_close(got, exp, rtol=swa.RTOL, atol=swa.ATOL)
+
+
+@pytest.mark.cuda
+def test_device_clock_graph_replay_agrees_with_the_profiler(cuda_device):
+    """perf.timing.device_ms's fallback clock (a CUDA graph's replay,
+    taken when the profiler keeps dropping the trace) agrees with the
+    profiler's device time for conv2d at 1080p within 2x: the replay
+    adds the gaps between launches, nothing else."""
+    from repro_torch.perf.timing import device_ms
+    rng = np.random.RandomState(6)
+    img = torch.from_numpy(rng.rand(1080, 1920).astype(np.float32)).to(
+        cuda_device)
+    wts = torch.from_numpy(rng.randn(5, 5).astype(np.float32)).to(
+        cuda_device)
+
+    def fn():
+        return conv2d_stencil.conv2d(img, wts)
+    prof, by_name = device_ms(fn, 20)
+    graph, by_graph = device_ms(fn, 20, attempts=0)
+    assert list(by_graph) == ["cuda graph replay"]
+    assert any("conv2d_rows" in name for name in by_name)
+    assert prof / 2 < graph < prof * 2

@@ -14,8 +14,11 @@ never wrote shows in the output. The result must equal
 temporal pipeline, over random frame-ring states), as the kernel must
 on the card.
 
-The conv2d kernel (``csrc/conv2d_stencil.cu``) compiles under the same
-shim and must equal ``conv2d_plain`` bitwise.
+The conv2d kernels (``csrc/conv2d_stencil.cu``) compile under the same
+shim and must equal ``conv2d_plain`` bitwise. The row-streaming kernel
+has no barrier, so its CTAs run with all their threads (one after
+another); the tile kernel keeps ``blockDim`` 1 and NaN-filled shared
+memory. ``float2``/``float4`` are plain aligned structs there.
 
 This checks the kernel's index math, rings, halos, masks and operand
 table at launch geometries the card's tests do not reach; the threads
@@ -53,7 +56,9 @@ _SHIM = r"""
 #include <algorithm>
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
 #include <cstring>
+#include <utility>
 #include <vector>
 #define STENCIL_HOST_SHIM
 using std::max;
@@ -62,6 +67,10 @@ struct Dim3 { int x, y, z; };
 static Dim3 blockIdx{0, 0, 0}, threadIdx{0, 0, 0}, blockDim{1, 1, 1};
 static float* g_smem;
 #define __global__
+#define __device__
+#define __forceinline__ inline
+struct alignas(8) float2 { float x, y; };
+struct alignas(16) float4 { float x, y, z, w; };
 #define __launch_bounds__(n)
 #define __grid_constant__
 #define __restrict__
@@ -107,16 +116,35 @@ extern "C" void host_launch(const int* table, const float* wts,
 
 
 _CONV_LAUNCHER = r"""
-extern "C" void host_conv2d(const float* img, const float* wts, float* out,
-                            int h, int w, int kh, int kw, int tr) {
-  std::vector<float> sm(kh * kw + (tr + kh - 1) * (kStripW + kw - 1));
+extern "C" int host_conv2d(const float* img, const float* wts, float* out,
+                           int h, int w, int kh, int kw, int band,
+                           int cols) {
+  if (kh <= kMaxTap && kw <= kMaxTap) {
+    const RowKernel kernel = pick_rows(kh, kw, cols);
+    if (kernel == nullptr) return -1;
+    const bool vec = use_vector(img, out, w, cols);
+    const int per_row = (w + cols - 1) / cols;
+    blockDim = Dim3{kThreads, 1, 1};
+    for (int y = 0; y < (h + band - 1) / band; ++y)
+      for (int x = 0; x < (per_row + kThreads - 1) / kThreads; ++x)
+        for (int t = 0; t < kThreads; ++t) {
+          blockIdx = Dim3{x, y, 0};
+          threadIdx = Dim3{t, 0, 0};
+          kernel(img, wts, out, h, w, band, vec);
+        }
+    return vec ? kRowsVector : kRowsScalar;
+  }
+  std::vector<float> sm(kh * kw + (band + kh - 1) * (kStripW + kw - 1));
   g_smem = sm.data();
-  for (int y = 0; y < (h + tr - 1) / tr; ++y)
+  blockDim = Dim3{1, 1, 1};
+  threadIdx = Dim3{0, 0, 0};
+  for (int y = 0; y < (h + band - 1) / band; ++y)
     for (int x = 0; x < (w + kStripW - 1) / kStripW; ++x) {
       std::fill(sm.begin(), sm.end(), NAN);
       blockIdx = Dim3{x, y, 0};
-      conv2d_kernel(img, wts, out, h, w, kh, kw, tr);
+      conv2d_tile(img, wts, out, h, w, kh, kw, band);
     }
+  return kTile;
 }
 """
 
@@ -135,6 +163,7 @@ def _host_library(tmp_path_factory, source: str, launcher: str):
     d = tmp_path_factory.mktemp("host_kernel")
     (d / "k.cpp").write_text(_SHIM + body + "}  // namespace\n" + launcher)
     subprocess.run([cxx, "-O1", "-std=c++17", "-ffp-contract=off",
+                    "-fno-strict-aliasing",
                     "-shared", "-fPIC", "-o", str(d / "k.so"),
                     str(d / "k.cpp")], check=True, capture_output=True)
     return ctypes.CDLL(str(d / "k.so"))
@@ -326,26 +355,74 @@ def test_host_compiled_prefetch_temporal_kernel_matches_plain(
 def host_conv2d(tmp_path_factory):
     lib = _host_library(tmp_path_factory, "conv2d_stencil.cu",
                         _CONV_LAUNCHER)
-    lib.host_conv2d.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
-    lib.host_conv2d.restype = None
-    return lib.host_conv2d
+    lib.host_conv2d.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+    lib.host_conv2d.restype = ctypes.c_int
+
+    def launch(img, wts, band, cols=conv2d_stencil.COLS, offset=0):
+        """(output, variant) of the kernel the launch picks; ``offset``
+        floats shift the image and output off their 16-byte alignment."""
+        h, w = img.shape
+        src = np.zeros(h * w + offset, np.float32)
+        src[offset:] = img.ravel()
+        out = np.full(h * w + offset, np.float32(-7.0))
+        ran = lib.host_conv2d(src[offset:].ctypes.data, wts.ctypes.data,
+                              out[offset:].ctypes.data, h, w, *wts.shape,
+                              band, cols)
+        assert ran >= 0, (wts.shape, cols)
+        return out[offset:].reshape(h, w), conv2d_stencil.VARIANTS[ran]
+    return launch
 
 
-@pytest.mark.parametrize("tile_rows", [1, 3, 8])
-@pytest.mark.parametrize("k", [(1, 1), (3, 3), (1, 5), (5, 1), (2, 4)])
+# every filter of the JAX sweep, the largest square and non-square ones
+# the row kernel takes, and two that take the tile kernel
+CONV_FILTERS = [(1, 1), (3, 3), (1, 5), (5, 1), (2, 4), (5, 5), (7, 7),
+                (4, 6), (7, 2), (3, 7), (8, 3), (9, 9)]
+# the JAX sweep's shapes (w % 4 != 0 at 130 and 257), and wider frames
+# with w % 4 == 0 over more than one CTA strip
+CONV_SHAPES = [(8, 16), (20, 24), (13, 130), (9, 257), (37, 1028),
+               (3, 516)]
+
+
+@pytest.mark.parametrize("tile_rows", [1, 3, 8, 16, 64])
+@pytest.mark.parametrize("k", CONV_FILTERS)
 def test_host_compiled_conv2d_matches_plain(host_conv2d, k, tile_rows):
-    """The conv2d kernel over frames narrower and wider than one strip,
-    with h % tile_rows != 0, equals conv2d_plain bitwise."""
-    assert conv2d_stencil.smem_bytes(*k, tile_rows) == 4 * (
-        k[0] * k[1] + (tile_rows + k[0] - 1)
-        * (conv2d_stencil.STRIP_W + k[1] - 1))
+    """Both conv2d kernels over frames narrower and wider than one strip,
+    bands (or tiles) of ``tile_rows`` rows, taller and shorter than the
+    frame with h % tile_rows != 0, vector rows (w % 4 == 0, aligned) and
+    scalar ones, equal conv2d_plain bitwise; shared memory is NaN before
+    each CTA."""
+    band = tile_rows
+    rows = conv2d_stencil.uses_rows(*k)
+    assert conv2d_stencil.smem_bytes(*k, band) == (0 if rows else 4 * (
+        k[0] * k[1] + (band + k[0] - 1) * (conv2d_stencil.STRIP_W + k[1]
+                                           - 1)))
     rng = np.random.RandomState(3)
-    for h, w in [(8, 16), (20, 24), (13, 130), (9, 257)]:
+    seen = set()
+    for h, w in CONV_SHAPES:
         img = rng.rand(h, w).astype(np.float32)
         wts = rng.randn(*k).astype(np.float32)
-        out = np.full((h, w), np.float32(-7.0))
-        host_conv2d(img.ctypes.data, wts.ctypes.data, out.ctypes.data,
-                    h, w, k[0], k[1], tile_rows)
         exp = conv2d_stencil.conv2d_plain(torch.from_numpy(img),
-                                          torch.from_numpy(wts))
-        assert np.array_equal(out, exp.numpy()), ((h, w), k, tile_rows)
+                                          torch.from_numpy(wts)).numpy()
+        for offset in (0, 1):
+            got, variant = host_conv2d(img, wts, band, offset=offset)
+            assert np.array_equal(got, exp), ((h, w), k, band, offset)
+            seen.add(variant)
+    assert seen == ({"rows_vector", "rows_scalar"} if rows else {"tile"})
+
+
+@pytest.mark.parametrize("cols", [1, 2, 4])
+@pytest.mark.parametrize("k", [(3, 3), (5, 5)])
+def test_host_compiled_conv2d_columns_per_thread(host_conv2d, k, cols):
+    """The 1080p filters at 1, 2 and 4 output columns per thread (the
+    launch-geometry sweep's kernels) equal conv2d_plain bitwise."""
+    rng = np.random.RandomState(4)
+    for h, w in [(21, 130), (19, 520)]:
+        img = rng.rand(h, w).astype(np.float32)
+        wts = rng.randn(*k).astype(np.float32)
+        exp = conv2d_stencil.conv2d_plain(torch.from_numpy(img),
+                                          torch.from_numpy(wts)).numpy()
+        for band in (4, 16):
+            got, variant = host_conv2d(img, wts, band, cols=cols)
+            assert np.array_equal(got, exp), ((h, w), k, band, cols)
+            assert variant == ("rows_vector" if cols > 1 and w % cols == 0
+                               else "rows_scalar")

@@ -156,7 +156,9 @@ def test_swa_decode_rejects_bad_shapes():
         swa.swa_decode(q, k, k, 8, 0)
     with pytest.raises(ValueError, match="takes"):
         swa.swa_decode(q[0], k, k, 8, 0)
-    assert swa.smem_bytes(4, 512, 256) < swa.SMEM_LIMIT
+    # the split kernel stays under the 48 KB a CTA takes without raising
+    # its shared-memory attribute, at any window
+    assert swa.smem_bytes(4, 256) <= 48 * 1024
 
 
 def test_standalone_entry_points_refuse_to_run_without_a_card():
