@@ -13,13 +13,16 @@ inputs. Each phase prints one JSON line:
 
   1. device  — the card, its compute capability (must be 9.0) and power
                limit;
-  2. build   — the kernels built with nvcc for sm_90a, and the time;
+  2. build   — the kernels built with nvcc for sm_90a, the time, and
+               ptxas's registers and spill bytes (per instantiation of
+               the fused stencil kernel);
   3. kernel  — the fused stencil kernel against its plain version for the
                7 pipelines x R in {1, 8} x four frame shapes, single-frame
                and batched (B=4, last slot an idle zero frame);
   4. serve   — the spatial path, with the kernel's launch count over it,
-               throughput, and per-pipeline kernel / plain / bound times at
-               B=4, 1080p, R=8;
+               throughput, and per-pipeline kernel (per call and device
+               time) / plain / bound times at B=4, 1080p, R=8, with the
+               launch's threads, shared memory and CTAs per SM;
   5. video_kernel — the temporal kernel (history taps, frame outputs)
                against its plain version: the 4 video pipelines plus an
                internal temporal producer, R in {1, 8}, four frame shapes,
@@ -29,8 +32,8 @@ inputs. Each phase prints one JSON line:
                video pipeline at 1080p, chunk 4, R=8, every served frame
                against the plain version over its whole stream, delivery
                order and warm flags, the temporal launch count, fps,
-               latency, and per-pipeline kernel / plain / bound times of
-               one chunk-4 launch;
+               latency, and per-pipeline kernel (both clocks) / plain /
+               bound times of one chunk-4 launch with its resources;
   7. tuned   — the autotuned rung: VideoEngine(autotune=True) on the 4
                video pipelines and FrameEngine(autotune=True) on
                unsharp-m at 1080p, against the plain version;
@@ -41,8 +44,8 @@ inputs. Each phase prints one JSON line:
                4 video pipelines in chunks of 4 and an internal temporal
                producer, 12-frame streams, output and state at every
                step; FrameEngine and VideoEngine serving at depth 2; then
-               per-pipeline kernel times at depth 1, 2 and 4 with shared
-               memory per CTA and CTAs per SM;
+               per-pipeline kernel times (both clocks) at depth 1, 2 and
+               4 with shared memory per CTA and CTAs per SM;
   9. conv2d  — the conv2d kernels through ``kernels.ops.conv2d`` on a
                1080p frame with 3x3 and 5x5 filters (the row-streaming
                kernel; the launch names the instantiation it ran) and the
@@ -61,7 +64,8 @@ inputs. Each phase prints one JSON line:
                ``swa_decode_plain``; kernel / plain / bound / SDPA times per
                call and on the device, with the split count and CTAs;
  11. kernels — one line per kernel path: route, source, launches, error
-               and times.
+               and times (the K1 entries with device time, registers,
+               spill bytes, shared memory and CTAs per SM).
 
 Tolerance: bitwise (0 ULP) for the stencil kernel at every depth and for
 conv2d. They round every product and sum on their own in the plain
@@ -308,8 +312,10 @@ def video_serve_phase(dev, mem_rate: float, flop_rate: float,
                                             SERVE_W)).to(dev)
                  for p, d in ex.depths.items()}
         rings = [state[p] for p in prog.states]
-        k_ms = cuda_ms(lambda: sp.stencil_pipeline(prog, [x], rings),
-                       iters=20)
+        def call():
+            sp.stencil_pipeline(prog, [x], rings)
+        k_ms = cuda_ms(call, iters=20)
+        dev_ms = device_ms(call, 20)[0]
         inputs = {"in": x}
         p_ms = cuda_ms(lambda: sp.video_pipeline_plain(dag, {
             **inputs, **sp.tap_feeds(dag, inputs, state, VIDEO_CHUNK)}),
@@ -317,16 +323,13 @@ def video_serve_phase(dev, mem_rate: float, flop_rate: float,
         roll_ms = cuda_ms(lambda: ex({"in": x}, state), iters=10) - k_ms
         nbytes, ops = sp.launch_work(prog, VIDEO_CHUNK)
         t_bytes, t_ops = nbytes / mem_rate * 1e3, ops / flop_rate * 1e3
-        occ = sp.blocks_per_sm(prog)
-        ctas = prog.grid_x * prog.grid_y * VIDEO_CHUNK
         per[name] = {
-            "ms": k_ms, "plain_ms": p_ms,
+            "ms": k_ms, "device_ms": dev_ms, "plain_ms": p_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "x_bound": k_ms / max(t_bytes, t_ops),
-            "bytes": nbytes, "ops": ops, "smem_bytes": prog.smem_bytes,
-            "ctas": ctas, "blocks_per_sm": occ, "waves": ctas / (occ * sms),
-            "strip_w": prog.strip_w, "band_h": prog.band_h,
+            "x_bound": dev_ms / max(t_bytes, t_ops),
+            "bytes": nbytes, "ops": ops,
+            **k1_resources(prog, VIDEO_CHUNK, sms),
             "state_bytes": ex.frame_state_bytes,
             "state_roll_bytes": ex.state_roll_bytes,
             "executor_call_minus_kernel_ms": roll_ms}
@@ -343,10 +346,11 @@ def video_serve_phase(dev, mem_rate: float, flop_rate: float,
     return {"launches": launches, "max_abs_err": max_err,
             "max_ulp": max_ulp,
             **{k: sum(p[k] for p in per.values())
-               for k in ("ms", "plain_ms", "bound_ms")},
+               for k in ("ms", "device_ms", "plain_ms", "bound_ms")},
             "bound_by": "bytes" if all(p["bound_by"] == "bytes"
                                        for p in per.values())
-            else "operations"}
+            else "operations",
+            **k1_entry_resources(per, "temporal")}
 
 
 def tuned_phase(dev) -> float:
@@ -567,14 +571,13 @@ def depth_phase(dev, mem_rate: float, flop_rate: float, sms: int) -> dict:
                                     frames=SERVE_B,
                                     alloc_buffers=plan.alloc.buffers,
                                     prefetch_depth=d)
-            occ = sp.blocks_per_sm(prog)
-            ctas = prog.grid_x * prog.grid_y * SERVE_B
+            def call():
+                sp.stencil_pipeline(prog, [x], states)
             row[f"d{d}"] = {
-                "ms": cuda_ms(lambda: sp.stencil_pipeline(prog, [x], states),
-                              iters=20),
-                "smem_bytes": prog.smem_bytes,
+                "ms": cuda_ms(call, iters=20),
+                "device_ms": device_ms(call, 10)[0],
                 "staging_bytes": prog.staging_bytes,
-                "blocks_per_sm": occ, "waves": ctas / (occ * sms)}
+                **k1_resources(prog, SERVE_B, sms)}
         inputs = {"in": x}
         row["plain_ms"] = cuda_ms(lambda: sp.video_pipeline_plain(dag, {
             **inputs, **sp.tap_feeds(dag, inputs, dict(zip(
@@ -582,8 +585,7 @@ def depth_phase(dev, mem_rate: float, flop_rate: float, sms: int) -> dict:
         nbytes, ops = sp.launch_work(prog, SERVE_B)
         t_bytes, t_ops = nbytes / mem_rate * 1e3, ops / flop_rate * 1e3
         row.update(bound_ms=max(t_bytes, t_ops),
-                   bound_by="bytes" if t_bytes >= t_ops else "operations",
-                   ctas=ctas)
+                   bound_by="bytes" if t_bytes >= t_ops else "operations")
         per[name] = row
     emit("depth", kernel="stencil_pipeline (prefetch)", depths=list(DEPTHS),
          cases=cases, spatial_shapes=[list(s) for s in DEPTH_SHAPES],
@@ -599,7 +601,16 @@ def depth_phase(dev, mem_rate: float, flop_rate: float, sms: int) -> dict:
     return {"launches": launches, "max_abs_err": max_err,
             "max_ulp": max_ulp,
             "ms": sum(p["d2"]["ms"] for p in spatial),
+            "device_ms": sum(p["d2"]["device_ms"] for p in spatial),
             "ms_depth4": sum(p["d4"]["ms"] for p in spatial),
+            "device_ms_depth1": sum(p["d1"]["device_ms"] for p in spatial),
+            "ptxas": _registers("stencil_pipeline",
+                                K1_INSTANCES["spatial_prefetch"]),
+            "ptxas_temporal": _registers(
+                "stencil_pipeline", K1_INSTANCES["temporal_prefetch"]),
+            "smem_bytes": {n: per[n]["d2"]["smem_bytes"] for n in names},
+            "blocks_per_sm": {n: per[n]["d2"]["blocks_per_sm"]
+                              for n in names},
             "plain_ms": sum(p["plain_ms"] for p in spatial),
             "bound_ms": sum(p["bound_ms"] for p in spatial),
             "bound_by": "bytes" if all(p["bound_by"] == "bytes"
@@ -612,6 +623,34 @@ def _registers(lib: str, pattern: str) -> dict | None:
     from repro_torch.kernels import _build
     hits = [v for k, v in _build.ptxas(lib).items() if pattern in k]
     return hits[0] if len(hits) == 1 else None
+
+
+# the fused kernel's instantiations: <kTemporal, kPrefetch>
+K1_INSTANCES = {"spatial": "ILb0ELb0E", "temporal": "ILb1ELb0E",
+                "spatial_prefetch": "ILb0ELb1E",
+                "temporal_prefetch": "ILb1ELb1E"}
+
+
+def k1_resources(prog, frames_: int, sms: int) -> dict:
+    """Threads, shared memory, CTAs and CTAs per SM of one launch of the
+    fused kernel over ``frames_`` frames."""
+    from repro_torch.kernels import stencil_pipeline as sp
+    occ = sp.blocks_per_sm(prog)
+    ctas = prog.grid_x * prog.grid_y * frames_
+    return {"threads": int(prog.table[sp.H_THREADS]),
+            "smem_bytes": prog.smem_bytes, "ctas": ctas,
+            "blocks_per_sm": occ, "waves": ctas / (occ * sms),
+            "strip_w": prog.strip_w, "band_h": prog.band_h}
+
+
+def k1_entry_resources(per: dict, instance: str) -> dict:
+    """The K1 kernels-line fields beside the times: ptxas's registers and
+    spill bytes of ``instance``, and per pipeline the shared memory and
+    CTAs per SM."""
+    return {"ptxas": _registers("stencil_pipeline", K1_INSTANCES[instance]),
+            "smem_bytes": {n: p["smem_bytes"] for n, p in per.items()},
+            "blocks_per_sm": {n: p["blocks_per_sm"]
+                              for n, p in per.items()}}
 
 
 def conv2d_phase(dev, mem_rate: float, flop_rate: float) -> dict:
@@ -854,7 +893,9 @@ def main() -> None:
                                        for r in rep)}
     emit("build", seconds=build_s, flags=list(_build.NVCC_FLAGS),
          libraries={n: os.path.relpath(p, ROOT) for n, p in libs.items()},
-         ptxas=ptxas)
+         ptxas=ptxas, stencil_pipeline={
+             k: _registers("stencil_pipeline", v)
+             for k, v in K1_INSTANCES.items()})
 
     # ---------------------------------------------- 3. kernel vs plain
     max_err, max_ulp, cases = 0.0, 0.0, 0
@@ -947,21 +988,19 @@ def main() -> None:
         prog = ex.program
         x = torch.from_numpy(frames(3000, SERVE_B, SERVE_H,
                                     SERVE_W)).to(dev)
-        k_ms = cuda_ms(lambda: sp.stencil_pipeline(prog, [x]), iters=20)
+        def call():
+            sp.stencil_pipeline(prog, [x])
+        k_ms = cuda_ms(call, iters=20)
         p_ms = cuda_ms(lambda: sp.stencil_pipeline_plain(
             ex.dag, {"in": x}), iters=3, warmup=1)
         nbytes, ops = sp.launch_work(prog, SERVE_B)
         t_bytes, t_ops = nbytes / mem_rate * 1e3, ops / flop_rate * 1e3
-        occ = sp.blocks_per_sm(prog)
-        ctas = prog.grid_x * prog.grid_y * SERVE_B
         per[name] = {
-            "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": max(t_bytes, t_ops),
+            "ms": k_ms, "device_ms": device_ms(call, 20)[0],
+            "plain_ms": p_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "ops": ops, "smem_bytes": prog.smem_bytes,
-            "ctas": ctas, "blocks_per_sm": occ,
-            "waves": ctas / (occ * sms),
-            "strip_w": prog.strip_w, "band_h": prog.band_h}
+            "bytes": nbytes, "ops": ops,
+            **k1_resources(prog, SERVE_B, sms)}
     snap = engine.snapshot()
     emit("serve", frames=len(reqs), tiled_frames=len(treqs),
          pipelines=names, batch=SERVE_B, rows_per_step=SERVE_R,
@@ -1000,6 +1039,8 @@ def main() -> None:
         "replaces": "src/repro/kernels/stencil_pipeline.py:423",
         "launches": launches, "max_abs_err": max_err, "max_ulp": max_ulp,
         "ms": sum(p["ms"] for p in per.values()),
+        "device_ms": sum(p["device_ms"] for p in per.values()),
+        **k1_entry_resources(per, "spatial"),
         "plain_ms": sum(p["plain_ms"] for p in per.values()),
         "bound_ms": sum(p["bound_ms"] for p in per.values()),
         "bound_by": max(share, key=share.get),
@@ -1016,6 +1057,8 @@ def main() -> None:
         "launches": k1c["launches"],
         "max_abs_err": max(k1c_err, k1c["max_abs_err"]),
         "max_ulp": max(k1c_ulp, k1c["max_ulp"]), "ms": k1c["ms"],
+        "device_ms": k1c["device_ms"],
+        **{k: k1c[k] for k in ("ptxas", "smem_bytes", "blocks_per_sm")},
         "plain_ms": k1c["plain_ms"], "bound_ms": k1c["bound_ms"],
         "bound_by": k1c["bound_by"], "library_ms": None,
         "timed_on": f"one chunk-{VIDEO_CHUNK} {SERVE_H}x{SERVE_W} "
@@ -1027,6 +1070,9 @@ def main() -> None:
         "replaces_part": "prefetch_depth >= 2 rings (:319-421)",
         "launches": k1d["launches"], "max_abs_err": k1d["max_abs_err"],
         "max_ulp": k1d["max_ulp"], "ms": k1d["ms"],
+        **{k: k1d[k] for k in ("device_ms", "device_ms_depth1", "ptxas",
+                               "ptxas_temporal", "smem_bytes",
+                               "blocks_per_sm")},
         "ms_depth4": k1d["ms_depth4"], "plain_ms": k1d["plain_ms"],
         "bound_ms": k1d["bound_ms"], "bound_by": k1d["bound_by"],
         "library_ms": None,

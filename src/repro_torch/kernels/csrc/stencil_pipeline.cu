@@ -14,27 +14,63 @@
 // of an H100 SXM -- against a few tens of float32 operations per pixel,
 // so the bound is device-memory bytes. A temporal launch adds the history
 // frames it reads (d-1 per temporal producer) and the frames of internal
-// temporal producers it writes. This kernel is simple rather than fast:
-// it loads with plain coalesced reads, runs one thread per (row, column)
-// of a row group, and synchronises the block between stages. TMA row
-// loads into an mbarrier ring and warp specialisation are later work.
+// temporal producers it writes. What holds the kernel back in practice is
+// the work per element and the waits between levels: every stage reads
+// its producers' windows from shared memory and the block synchronises
+// between DAG levels. The design spends as few instructions and
+// shared-memory accesses per window tap as it can.
 //
 // Work split. The TPU kernel walks a frame sequentially on one core with
 // rings carried across grid steps. Here one CTA owns one (frame, column
 // strip, row band) and loops over row groups of R rows top to bottom,
 // keeping one ring per producer in dynamic shared memory:
 //   * a strip of strip_w output columns recomputes its left halo of
-//     halo_left columns (the DAG's cumulative stencil width) from real
-//     input; a band recomputes its top halo of halo_up rows likewise.
-//     Reads left of the strip's first stored column or above the band's
-//     first computed row return zero, but only values inside the halo
-//     ever see them, and the halo is never written out. Only reads at
-//     frame row < 0 or frame column < 0 give the zero of the frame edge:
-//     a halo is never zero-filled (mag maps 0 to sqrt(1e-6)).
+//     halo_left columns (the DAG's cumulative stencil width, rounded up
+//     to 4 where 16-byte vectors apply) from real input; a band
+//     recomputes its top halo of halo_up rows likewise. A CTA computes
+//     ncols columns, the strip and its halo rounded up to a warp.
 //   * a CTA owns exactly one frame of the batch, so batched frames never
 //     see one another's ring residue.
 //   * rows at and below h (the last partial row group) and columns at
 //     and beyond w compute from zero input and are never stored.
+//
+// Per stage and row group, a thread owns fixed columns (threadIdx.x,
+// + blockDim.x, ...) and walks the R rows down each. A window of sh rows
+// by sw columns lives in registers: per row the thread loads the sw new
+// values of the row entering the window and shifts the others, so each
+// producer value is read from shared memory once per row and column it
+// feeds, not once per tap. Neighbouring threads read neighbouring
+// columns, so the warp's loads are free of bank conflicts.
+//
+// No division or test on the tap path:
+//   * ring rows are found from a per-ring table of the slot that holds
+//     the row group's first row, advanced once per row group with a
+//     compare and subtract; a window's row walks the ring with one
+//     compare per row.
+//   * the frame's zero border is stored, not tested: each ring row holds
+//     `pad` columns (the widest window's sw - 1) left of the CTA's
+//     columns, the rings are zero-filled once at CTA start, and a stage
+//     writes 0 for frame column < 0 (once per element, where it writes
+//     its ring). Rows above the band's first computed row rlo are slots
+//     not yet written, hence zero, because a ring holds at least the
+//     R + sh - 1 rows its widest reader spans. Only frame row < 0 or
+//     column < 0 reads as the frame edge's zero; a halo is computed from
+//     real input and never zero-filled (mag maps 0 to sqrt(1e-6)).
+//   * the op and the window shape are resolved outside the pixel loop:
+//     build_program names each stage's body (enum Kind): a feed, a
+//     pointwise op on 1x1 operands, or one of the window shapes the
+//     registered pipelines use, unrolled with the weights in registers.
+//     Any other shape takes the generic body, which reads every tap from
+//     shared memory.
+//   * stages of one DAG level read only rings of earlier levels, so the
+//     block synchronises once per level (S_SYNC), not once per stage.
+//
+// Vector I/O. Where w % 4 == 0, the strip starts on a multiple of 4 and
+// every tensor is 16-byte aligned (H_VEC; 1080p qualifies), feeds are read
+// and outputs written as float4: a feed stage maps threads to (row,
+// 4-column) items, and the final stage writes its R rows to an output
+// block in shared memory that the CTA stores as float4 after the level's
+// barrier. Odd widths take scalar loads and stores in the same template.
 //
 // Temporal pipelines. Each history tap (producer p, j frames back) is a
 // pseudo-input stage (OP_TAP) with its own ring, filled like an input
@@ -50,10 +86,10 @@
 //
 // The pipeline comes as a stage table built once per plan on the host
 // (repro_torch/kernels/stencil_pipeline.py::build_program) and passed by
-// value as a __grid_constant__ parameter: per stage an op code, its own
-// ring, its operands (first ring, st, sh, sw), and offsets into a
-// float32 constant table. One compiled kernel serves every pipeline; no
-// source is generated per DAG.
+// value as a __grid_constant__ parameter: per stage an op code, its body,
+// its own ring, its operands (first ring, st, sh, sw), offsets into a
+// float32 constant table and whether a barrier follows it. One compiled
+// kernel serves every pipeline; no source is generated per DAG.
 //
 // Numerics: every product and sum goes through the _rn intrinsics (and the
 // library is built with -fmad=false), in the reference's order, and sqrt
@@ -63,38 +99,38 @@
 // Prefetch depth d >= 2 (the kPrefetch instantiations). The TPU kernel
 // stages every feed through a (d, R, W) VMEM ring filled by
 // pltpu.make_async_copy, so step t computes on slot t % d while steps
-// t+1..t+d-1 load, and drains outputs through staging rings. Here each
-// feed stage (an input, or a history tap) owns a staging ring of d slots
-// of R x ncols floats in dynamic shared memory, after the line rings. A
-// CTA's row groups are its steps t = 0, 1, ...; a prologue issues the
-// copies of steps 0..d-1, step t waits for its own slot, the input and tap
-// stages read the slot instead of device memory, and after the stage
-// pass's last barrier the kernel refills that slot with step t + d. The
-// copies are 4-byte cp.async (src-size 0 writes the zero of the frame
-// edge), so any width works: a TMA tensor map would need 16-byte row
-// strides. One commit group per step (an empty one past the band's last
-// step) and cp.async.wait_group d-1 track completion. Each thread copies
-// exactly the slot elements it later reads (the same idx loop), so its own
-// wait makes them visible; no block barrier is needed for the copies.
-// Depths above 8 stay correct but keep at most 8 steps in flight, since
-// wait_group takes an immediate. Outputs keep direct global stores: a
-// store does not stall the warp that issues it, so the TPU's output
-// staging rings have no work to do here. The depth-1 instantiations
-// compile to the kernel without any of this.
+// t+1..t+d-1 load. Here each feed stage (an input, or a history tap) owns
+// a staging ring of d slots of R x ncols floats in dynamic shared memory,
+// after the line rings. A CTA's row groups are its steps t = 0, 1, ...; a
+// prologue issues the copies of steps 0..d-1, step t waits for its own
+// slot, the feed stages copy the slot into their line ring, and after the
+// row group's last barrier the kernel refills that slot with step t + d.
+// The copies are 4-byte cp.async (src-size 0 writes the zero of the frame
+// edge), so any width works. One commit group per step (an empty one past
+// the band's last step) and cp.async.wait_group d-1 track completion. A
+// thread copies exactly the slot elements it later reads (its columns,
+// every row), so its own wait makes them visible; no block barrier is
+// needed for the copies. Depths above 8 stay correct but keep at most 8
+// steps in flight, since wait_group takes an immediate. The depth-1
+// instantiations compile to the kernel without any of this.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 #include <string.h>
 
 namespace {
 
-constexpr int kHdr = 16;
+constexpr int kHdr = 24;
 constexpr int kMaxStages = 24;
 constexpr int kStageInts = 24;
 constexpr int kMaxRings = 24;
 constexpr int kMaxWts = 256;
 constexpr int kMaxFeeds = 8;      // input frames, then frame-ring states
 constexpr int kMaxOuts = 4;       // the output, then frame outputs
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;     // threads per CTA at most
+// CTAs of kThreads an SM must hold by registers: caps a thread at 85
+// registers, which every instantiation meets without spilling
+constexpr int kMinBlocks = 3;
 
 // op codes: the order of stencil_pipeline.py::OPS
 enum Op {
@@ -103,22 +139,37 @@ enum Op {
   OP_TAP, OP_STMEAN, OP_FRAME_DIFF, OP_BG_SUBTRACT
 };
 
+// stage bodies: the order of stencil_pipeline.py::KINDS
+enum Kind {
+  K_GENERIC = 0, K_FEED, K_POINT, K_CONV_1x5, K_CONV_5x1, K_CONV_1x3,
+  K_CONV_3x1, K_CONV_3x3, K_NMS_3x3, K_XCORR_18, K_STMEAN_4, K_STMEAN_8,
+  K_STMEAN_333
+};
+
 // header fields
-// H_DEPTH is the prefetch depth, H_STAGING the offset (floats) of the
-// staging rings in shared memory, H_POISON fills them with NaN at start.
+// H_NCOLS: columns a CTA computes (a multiple of 32); H_PAD: zero columns
+// left of them in every ring row, H_PITCH = H_PAD + H_NCOLS floats a
+// ring row; H_OSTAGE, H_SLOTS, H_STAGING: offsets (floats) of the output
+// block, the ring-row tables and the staging rings in shared memory;
+// H_NRINGS: rings; H_VEC: 16-byte vector I/O; H_THREADS: threads per
+// CTA; H_OSYNC: a barrier after the output store (a level-0 final stage).
+// H_DEPTH is the prefetch depth, H_POISON fills staging with NaN first.
 enum Hdr {
   H_NSTAGES = 0, H_R, H_H, H_W, H_STRIP_W, H_HALO_LEFT, H_NCOLS, H_BAND_H,
-  H_HALO_UP, H_SMEM_BYTES, H_TEMPORAL, H_DEPTH, H_STAGING, H_POISON
+  H_HALO_UP, H_SMEM_BYTES, H_TEMPORAL, H_DEPTH, H_STAGING, H_POISON,
+  H_PAD, H_PITCH, H_OSTAGE, H_SLOTS, H_NRINGS, H_VEC, H_THREADS, H_OSYNC
 };
 
 // stage fields; S_SRC, S_ST, S_SH and S_SW each hold up to 3 operands.
 // S_FEED is an input's feed (or, for a tap, its producer's input feed,
 // -1 for an internal producer); S_STATE and S_TAPJ locate a tap's
 // frame-ring state and its frames back; S_FOUT is a frame output or -1;
-// S_STAGE is a feed stage's staging ring at depth >= 2, else -1.
+// S_STAGE is a feed stage's staging ring at depth >= 2, else -1; S_KIND
+// the body that runs the stage; S_SYNC 1 where a barrier follows.
 enum Field {
   S_OP = 0, S_RING, S_FINAL, S_FEED, S_NSRC, S_WOFF, S_FOUT, S_STATE,
-  S_TAPJ, S_SRC = 9, S_ST = 12, S_SH = 15, S_SW = 18, S_STAGE = 21
+  S_TAPJ, S_SRC = 9, S_ST = 12, S_SH = 15, S_SW = 18, S_STAGE = 21,
+  S_KIND = 22, S_SYNC = 23
 };
 
 struct Program {
@@ -146,6 +197,19 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                :: "r"(d), "l"(src), "r"(ok ? 4 : 0) : "memory");
 }
 
+// 16-byte asynchronous copy (both addresses 16-byte aligned); ok ==
+// false writes zero.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -165,65 +229,631 @@ __device__ __forceinline__ void cp_async_wait(int n) {
 }
 #endif
 
+// What every stage body of one CTA and row group needs.
+struct Ctx {
+  const Program* P;
+  const Feeds* F;
+  const Outs* O;
+  float* sm;
+  const int* slots;   // ring -> slot holding row row0 (this row group)
+  int R, h, w, ncols, pitch, pad, tid, nt;
+  int x0, x1, cbase, y0, y1, rlo, row0, t;
+  size_t hw, frame;
+  bool vec;
+  // (row, 4-column item) walk of an R x ncols block for vector I/O:
+  // this thread's first item and its stride, divided once per CTA
+  int qi0, qq0, qdi, qdq, nq;
+};
+
+// The ring slot of row row0 - back (back < the ring's rows).
+__device__ __forceinline__ int slot_of_row(const Ctx& c, int ring,
+                                           int back) {
+  const int s = c.slots[ring] - back;
+  return s < 0 ? s + c.P->ring[ring][1] : s;
+}
+
+// Walks one ring's rows from some row down, one compare a row. Offsets
+// are float indices into shared memory (32-bit, not pointers).
+struct Cursor {
+  int base;   // ring start, pad columns skipped
+  int slot, rows;
+  __device__ __forceinline__ void next() {
+    slot = slot + 1 == rows ? 0 : slot + 1;
+  }
+};
+
+__device__ __forceinline__ Cursor cursor(const Ctx& c, int ring, int back) {
+  Cursor k;
+  k.base = c.P->ring[ring][0] + c.pad;
+  k.rows = c.P->ring[ring][1];
+  k.slot = slot_of_row(c, ring, back);
+  return k;
+}
+
+// The cursor's current row, at the CTA's first column.
+__device__ __forceinline__ const float* row(const Ctx& c, const Cursor& k) {
+  return c.sm + k.base + k.slot * c.pitch;
+}
+
+// An SH x SW window of one column in registers: v[dy][dx] is pixel
+// (row - SH + 1 + dy, col - SW + 1 + dx) of the producer while output
+// row `row` is computed.
+template <int SH, int SW>
+struct Window {
+  float v[SH][SW];
+  __device__ __forceinline__ void load(const Ctx& c, int dy,
+                                       const Cursor& k, int lc) {
+    const float* r = row(c, k) + lc - (SW - 1);
+#pragma unroll
+    for (int dx = 0; dx < SW; ++dx) v[dy][dx] = r[dx];
+  }
+  // rows row0 - SH + 1 .. row0 - 1; k starts at row0 - SH + 1
+  __device__ __forceinline__ void init(const Ctx& c, Cursor& k, int lc) {
+#pragma unroll
+    for (int dy = 1; dy < SH; ++dy) {
+      load(c, dy, k, lc);
+      k.next();
+    }
+  }
+  __device__ __forceinline__ void push(const Ctx& c, Cursor& k, int lc) {
+#pragma unroll
+    for (int dy = 0; dy + 1 < SH; ++dy)
+#pragma unroll
+      for (int dx = 0; dx < SW; ++dx) v[dy][dx] = v[dy + 1][dx];
+    load(c, SH - 1, k, lc);
+    k.next();
+  }
+};
+
+// Where one column's values of a stage go: its ring (0 at frame column
+// < 0), the output block (the final stage), a frame output.
+struct Sink {
+  int ring;        // the column in the ring (float index), or -1
+  int slot, rows;
+  int out;         // the column in the output block, or -1
+  float* fout;     // the column of the frame output in device memory
+  bool zero, fcol;
+  __device__ __forceinline__ void put(const Ctx& c, int i, float v) {
+    if (ring >= 0) {
+      c.sm[ring + slot * c.pitch] = zero ? 0.f : v;
+      slot = slot + 1 == rows ? 0 : slot + 1;
+    }
+    if (out >= 0) c.sm[out + i * c.ncols] = v;
+    if (fout) {
+      const int r = c.row0 + i;
+      if (fcol && r >= c.y0 && r < c.y1)
+        fout[static_cast<size_t>(r) * c.w] = v;
+    }
+  }
+};
+
+template <bool kTemporal>
+__device__ __forceinline__ Sink sink(const Ctx& c, const int* S, int lc) {
+  Sink k;
+  const int col = c.cbase + lc;
+  const int ring = S[S_RING];
+  k.ring = -1;
+  k.slot = 0;
+  k.rows = 1;
+  if (ring >= 0) {
+    k.ring = c.P->ring[ring][0] + c.pad + lc;
+    k.rows = c.P->ring[ring][1];
+    k.slot = slot_of_row(c, ring, 0);
+  }
+  k.out = S[S_FINAL] ? c.P->hdr[H_OSTAGE] + lc : -1;
+  k.fout = kTemporal && S[S_FOUT] >= 0
+      ? c.O->p[S[S_FOUT]] + c.frame + col : nullptr;
+  k.zero = col < 0;
+  k.fcol = col >= c.x0 && col < c.x1;
+  return k;
+}
+
+// ----------------------------------------------------------------- feeds
+// The frame in device memory that a feed stage reads: an input's frame,
+// or a tap j of frame b: launch frame b - j, or state slot j - b - 1
+// (newest first) when that frame precedes the launch.
+__device__ __forceinline__ const float* feed_frame(const Ctx& c,
+                                                   const int* S) {
+  const int b = blockIdx.z, j = S[S_TAPJ];
+  if (S[S_OP] != OP_TAP) return c.F->p[S[S_FEED]] + c.frame;
+  return b >= j ? c.F->p[S[S_FEED]] + (b - j) * c.hw
+                : c.F->p[S[S_STATE]] + (j - b - 1) * c.hw;
+}
+
+// A feed stage: rows row0 .. row0 + R - 1 of its frame into its ring
+// (and the output block, if the output reads it), zero outside the frame.
+// At depth 1 the rows arrive by asynchronous copies straight into the
+// ring, so every feed of the level has its loads in flight at once; the
+// level's barrier waits for them. At depth >= 2 they come from the
+// feed's staging slot.
+template <bool kTemporal, bool kPrefetch>
+__device__ __forceinline__ void stage_feed(const Ctx& c, const int* S,
+                                           const float* staged) {
+  if (!kTemporal && S[S_OP] == OP_TAP) return;
+  if constexpr (kPrefetch) {
+    for (int lc = c.tid; lc < c.ncols; lc += c.nt) {
+      Sink k = sink<kTemporal>(c, S, lc);
+      for (int i = 0; i < c.R; ++i) k.put(c, i, staged[i * c.ncols + lc]);
+    }
+    return;
+  }
+  const int ring = S[S_RING];
+  float* rb = ring >= 0 ? c.sm + c.P->ring[ring][0] + c.pad : nullptr;
+  const int rows = ring >= 0 ? c.P->ring[ring][1] : 1;
+  const int s0 = ring >= 0 ? slot_of_row(c, ring, 0) : 0;
+  float* ob = S[S_FINAL] ? c.sm + c.P->hdr[H_OSTAGE] : nullptr;
+  const float* src = feed_frame(c, S);
+  if (c.vec) {
+    // float4 items; the strip, its halo and w are multiples of 4, so an
+    // item lies wholly inside or outside the frame
+    int i = c.qi0, q = c.qq0;
+    while (i < c.R) {
+      const int row = c.row0 + i, col = c.cbase + 4 * q;
+      const bool ok = row < c.h && col >= 0 && col < c.w;
+      const float* px = ok ? src + static_cast<size_t>(row) * c.w + col
+                           : src;
+      if (rb) {
+        int s = s0 + i;
+        if (s >= rows) s -= rows;
+        cp_async16(rb + s * c.pitch + 4 * q, px, ok);
+      }
+      if (ob) cp_async16(ob + i * c.ncols + 4 * q, px, ok);
+      i += c.qdi;
+      q += c.qdq;
+      if (q >= c.nq) {
+        q -= c.nq;
+        ++i;
+      }
+    }
+    return;
+  }
+  for (int lc = c.tid; lc < c.ncols; lc += c.nt) {
+    const int col = c.cbase + lc;
+    const bool inside = col >= 0 && col < c.w;
+    int s = s0;
+    for (int i = 0; i < c.R; ++i) {
+      const int row = c.row0 + i;
+      const bool ok = inside && row < c.h;
+      const float* px = ok ? src + static_cast<size_t>(row) * c.w + col
+                           : src;
+      if (rb) {
+        cp_async4(rb + s * c.pitch + lc, px, ok);
+        s = s + 1 == rows ? 0 : s + 1;
+      }
+      if (ob) cp_async4(ob + i * c.ncols + lc, px, ok);
+    }
+  }
+}
+
+// ------------------------------------------------------------ pointwise
+template <int OP> struct Arity { static constexpr int n = 1; };
+template <> struct Arity<OP_MAG> { static constexpr int n = 2; };
+template <> struct Arity<OP_PROD> { static constexpr int n = 2; };
+template <> struct Arity<OP_UNSHARP> { static constexpr int n = 2; };
+template <> struct Arity<OP_BG_SUBTRACT> { static constexpr int n = 2; };
+template <> struct Arity<OP_FRAME_DIFF> { static constexpr int n = 2; };
+template <> struct Arity<OP_DENOISE_COMB> { static constexpr int n = 3; };
+
+// One pixel of a pointwise op from its operands' values a[] and its
+// constant k.
+template <int OP>
+__device__ __forceinline__ float point(const float* a, float k) {
+  if constexpr (OP == OP_SQUARE) {
+    return __fmul_rn(a[0], a[0]);
+  } else if constexpr (OP == OP_MAG) {
+    return __fsqrt_rn(__fadd_rn(__fadd_rn(__fmul_rn(a[0], a[0]),
+                                          __fmul_rn(a[1], a[1])), k));
+  } else if constexpr (OP == OP_PROD) {
+    return __fmul_rn(a[0], a[1]);
+  } else if constexpr (OP == OP_THRESH) {
+    return a[0] > k ? a[0] : 0.f;
+  } else if constexpr (OP == OP_UNSHARP) {
+    return __fadd_rn(a[0], __fmul_rn(k, __fsub_rn(a[0], a[1])));
+  } else if constexpr (OP == OP_DENOISE_COMB) {
+    const float e = fminf(fmaxf(fabsf(a[2]), 0.f), 1.f);
+    return __fadd_rn(__fmul_rn(e, a[0]), __fmul_rn(__fsub_rn(1.f, e), a[1]));
+  } else if constexpr (OP == OP_HARRIS_RESP) {
+    return __fsub_rn(a[0], __fmul_rn(__fmul_rn(k, a[0]), a[0]));
+  } else if constexpr (OP == OP_BG_SUBTRACT) {
+    const float d = fabsf(__fsub_rn(a[0], a[1]));
+    return d > k ? d : 0.f;
+  } else if constexpr (OP == OP_FRAME_DIFF) {
+    // a[0]: the producer one frame back, a[1]: its current frame
+    return fabsf(__fsub_rn(a[1], a[0]));
+  } else {  // relay, identity
+    return a[0];
+  }
+}
+
+// A pointwise op on 1x1 operands; frame_diff reads time indices 0 and 1
+// of its one temporal operand.
+template <bool kTemporal, int OP>
+__device__ __forceinline__ void stage_point(const Ctx& c, const int* S) {
+  constexpr int N = Arity<OP>::n;
+  const float k = c.P->wts[S[S_WOFF]];
+  int rings[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+    rings[j] = OP == OP_FRAME_DIFF ? S[S_SRC] + j : S[S_SRC + j];
+  for (int lc = c.tid; lc < c.ncols; lc += c.nt) {
+    Sink out = sink<kTemporal>(c, S, lc);
+    Cursor cu[N];
+#pragma unroll
+    for (int j = 0; j < N; ++j) cu[j] = cursor(c, rings[j], 0);
+    for (int i = 0; i < c.R; ++i) {
+      float a[N];
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        a[j] = row(c, cu[j])[lc];
+        cu[j].next();
+      }
+      out.put(c, i, point<OP>(a, k));
+    }
+  }
+}
+
+// -------------------------------------------------------------- windows
+// conv: the first product, then acc + w * x, dy-major then dx
+template <bool kTemporal, int SH, int SW>
+__device__ __forceinline__ void stage_conv(const Ctx& c, const int* S) {
+  float wr[SH * SW];
+#pragma unroll
+  for (int k = 0; k < SH * SW; ++k) wr[k] = c.P->wts[S[S_WOFF] + k];
+  const int ring = S[S_SRC];
+  for (int lc = c.tid; lc < c.ncols; lc += c.nt) {
+    Sink out = sink<kTemporal>(c, S, lc);
+    Cursor cu = cursor(c, ring, SH - 1);
+    Window<SH, SW> win;
+    win.init(c, cu, lc);
+    for (int i = 0; i < c.R; ++i) {
+      win.push(c, cu, lc);
+      float v = __fmul_rn(wr[0], win.v[0][0]);
+#pragma unroll
+      for (int k = 1; k < SH * SW; ++k)
+        v = __fadd_rn(v, __fmul_rn(wr[k], win.v[k / SW][k % SW]));
+      out.put(c, i, v);
+    }
+  }
+}
+
+// nms over 3x3: centre [-2, -2], the max over every cell (from [0, 0])
+template <bool kTemporal>
+__device__ __forceinline__ void stage_nms3(const Ctx& c, const int* S) {
+  const int ring = S[S_SRC];
+  for (int lc = c.tid; lc < c.ncols; lc += c.nt) {
+    Sink out = sink<kTemporal>(c, S, lc);
+    Cursor cu = cursor(c, ring, 2);
+    Window<3, 3> win;
+    win.init(c, cu, lc);
+    for (int i = 0; i < c.R; ++i) {
+      win.push(c, cu, lc);
+      const float ctr = win.v[1][1];
+      float m = win.v[0][0];
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) m = fmaxf(m, win.v[dy][dx]);
+      out.put(c, i, ctr >= m ? ctr : 0.f);
+    }
+  }
+}
+
+// xcorr: an 18-tall column correlation minus the centre operand
+template <bool kTemporal>
+__device__ __forceinline__ void stage_xcorr18(const Ctx& c, const int* S) {
+  constexpr int SH = 18;
+  float wr[SH];
+#pragma unroll
+  for (int k = 0; k < SH; ++k) wr[k] = c.P->wts[S[S_WOFF] + k];
+  const int tall = S[S_SRC], ctr = S[S_SRC + 1];
+  for (int lc = c.tid; lc < c.ncols; lc += c.nt) {
+    Sink out = sink<kTemporal>(c, S, lc);
+    Cursor cu = cursor(c, tall, SH - 1);
+    Cursor cc = cursor(c, ctr, 0);
+    Window<SH, 1> win;
+    win.init(c, cu, lc);
+    for (int i = 0; i < c.R; ++i) {
+      win.push(c, cu, lc);
+      float v = __fmul_rn(wr[0], win.v[0][0]);
+#pragma unroll
+      for (int dy = 1; dy < SH; ++dy)
+        v = __fadd_rn(v, __fmul_rn(wr[dy], win.v[dy][0]));
+      v = __fsub_rn(v, row(c, cc)[lc]);
+      cc.next();
+      out.put(c, i, v);
+    }
+  }
+}
+
+// stmean over an ST x SH x SW box: the sum dt-major, then dy, then dx,
+// then one multiply by 1 / (ST * SH * SW); time index dt is ring first + dt
+template <int ST, int SH, int SW>
+__device__ __forceinline__ void stage_stmean(const Ctx& c, const int* S) {
+  const float k = c.P->wts[S[S_WOFF]];
+  const int first = S[S_SRC];
+  for (int lc = c.tid; lc < c.ncols; lc += c.nt) {
+    Sink out = sink<true>(c, S, lc);
+    Cursor cu[ST];
+    Window<SH, SW> win[ST];
+#pragma unroll
+    for (int dt = 0; dt < ST; ++dt) {
+      cu[dt] = cursor(c, first + dt, SH - 1);
+      win[dt].init(c, cu[dt], lc);
+    }
+    for (int i = 0; i < c.R; ++i) {
+#pragma unroll
+      for (int dt = 0; dt < ST; ++dt) win[dt].push(c, cu[dt], lc);
+      float v = win[0].v[0][0];
+#pragma unroll
+      for (int n = 1; n < ST * SH * SW; ++n)
+        v = __fadd_rn(v, win[n / (SH * SW)].v[n / SW % SH][n % SW]);
+      out.put(c, i, __fmul_rn(v, k));
+    }
+  }
+}
+
+// -------------------------------------------------------------- generic
+// Any op and window shape: every tap read from shared memory.
+template <bool kTemporal>
+__device__ __forceinline__ void stage_generic(const Ctx& c, const int* S) {
+  const int op = S[S_OP];
+  const float* wt = c.P->wts + S[S_WOFF];
+  for (int lc = c.tid; lc < c.ncols; lc += c.nt) {
+    Sink out = sink<kTemporal>(c, S, lc);
+    for (int i = 0; i < c.R; ++i) {
+      // window element (dt, dy, dx) of operand j: pixel
+      // (row - sh + 1 + dy, col - sw + 1 + dx) of ring first + dt
+      auto tap3 = [&](int j, int dt, int dy, int dx) -> float {
+        const int ring = S[S_SRC + j] + dt;
+        const int rows = c.P->ring[ring][1];
+        // i + dy - (sh - 1) lies in [-(rows - 1), rows - 1]
+        int s = c.slots[ring] + i + dy - (S[S_SH + j] - 1);
+        s = s < 0 ? s + rows : (s >= rows ? s - rows : s);
+        return c.sm[c.P->ring[ring][0] + c.pad + s * c.pitch + lc
+                    - (S[S_SW + j] - 1) + dx];
+      };
+      auto tap = [&](int j, int dy, int dx) -> float {
+        return tap3(j, 0, dy, dx);
+      };
+      float v = 0.f;
+      switch (op) {
+        case OP_STMEAN: {
+          if (!kTemporal) break;
+          const int st = S[S_ST], sh = S[S_SH], sw = S[S_SW];
+          int k = 0;
+          for (int dt = 0; dt < st; ++dt)
+            for (int dy = 0; dy < sh; ++dy)
+              for (int dx = 0; dx < sw; ++dx, ++k) {
+                const float t = tap3(0, dt, dy, dx);
+                v = k ? __fadd_rn(v, t) : t;
+              }
+          v = __fmul_rn(v, wt[0]);
+          break;
+        }
+        case OP_FRAME_DIFF:
+          if (kTemporal)
+            v = fabsf(__fsub_rn(tap3(0, 1, 0, 0), tap3(0, 0, 0, 0)));
+          break;
+        case OP_BG_SUBTRACT: {
+          if (!kTemporal) break;
+          const float d = fabsf(__fsub_rn(tap(0, 0, 0), tap(1, 0, 0)));
+          v = d > wt[0] ? d : 0.f;
+          break;
+        }
+        case OP_RELAY:
+        case OP_IDENTITY:
+          v = tap(0, 0, 0);
+          break;
+        case OP_CONV: {
+          const int sh = S[S_SH], sw = S[S_SW];
+          int k = 0;
+          for (int dy = 0; dy < sh; ++dy)
+            for (int dx = 0; dx < sw; ++dx, ++k) {
+              const float t = __fmul_rn(wt[k], tap(0, dy, dx));
+              v = k ? __fadd_rn(v, t) : t;
+            }
+          break;
+        }
+        case OP_SQUARE: {
+          const float a = tap(0, 0, 0);
+          v = __fmul_rn(a, a);
+          break;
+        }
+        case OP_MAG: {
+          const float a = tap(0, 0, 0), b = tap(1, 0, 0);
+          v = __fsqrt_rn(__fadd_rn(__fadd_rn(__fmul_rn(a, a),
+                                             __fmul_rn(b, b)), wt[0]));
+          break;
+        }
+        case OP_PROD:
+          v = __fmul_rn(tap(0, 0, 0), tap(1, 0, 0));
+          break;
+        case OP_NMS: {
+          // centre [-2, -2] when sw >= 2, else [-1, -1]; the max runs
+          // over the zero-padded cells too
+          const int sh = S[S_SH], sw = S[S_SW];
+          const float ctr = sw >= 2 ? tap(0, sh - 2, sw - 2)
+                                    : tap(0, sh - 1, sw - 1);
+          float m = tap(0, 0, 0);
+          for (int dy = 0; dy < sh; ++dy)
+            for (int dx = 0; dx < sw; ++dx) m = fmaxf(m, tap(0, dy, dx));
+          v = ctr >= m ? ctr : 0.f;
+          break;
+        }
+        case OP_THRESH: {
+          const float a = tap(0, 0, 0);
+          v = a > wt[0] ? a : 0.f;
+          break;
+        }
+        case OP_UNSHARP: {
+          const float o = tap(0, 0, 0), b = tap(1, 0, 0);
+          v = __fadd_rn(o, __fmul_rn(wt[0], __fsub_rn(o, b)));
+          break;
+        }
+        case OP_XCORR: {
+          const int sh = S[S_SH];
+          for (int dy = 0; dy < sh; ++dy) {
+            const float t = __fmul_rn(wt[dy], tap(0, dy, 0));
+            v = dy ? __fadd_rn(v, t) : t;
+          }
+          v = __fsub_rn(v, tap(1, 0, 0));
+          break;
+        }
+        case OP_DENOISE_COMB: {
+          const float o = tap(0, 0, 0), b = tap(1, 0, 0), l = tap(2, 0, 0);
+          const float e = fminf(fmaxf(fabsf(l), 0.f), 1.f);
+          v = __fadd_rn(__fmul_rn(e, o), __fmul_rn(__fsub_rn(1.f, e), b));
+          break;
+        }
+        case OP_HARRIS_RESP: {
+          const float a = tap(0, 0, 0);
+          v = __fsub_rn(a, __fmul_rn(__fmul_rn(wt[0], a), a));
+          break;
+        }
+      }
+      out.put(c, i, v);
+    }
+  }
+}
+
+template <bool kTemporal>
+__device__ __forceinline__ void stage_point_op(const Ctx& c, const int* S) {
+  switch (S[S_OP]) {
+    case OP_SQUARE: stage_point<kTemporal, OP_SQUARE>(c, S); break;
+    case OP_MAG: stage_point<kTemporal, OP_MAG>(c, S); break;
+    case OP_PROD: stage_point<kTemporal, OP_PROD>(c, S); break;
+    case OP_THRESH: stage_point<kTemporal, OP_THRESH>(c, S); break;
+    case OP_UNSHARP: stage_point<kTemporal, OP_UNSHARP>(c, S); break;
+    case OP_DENOISE_COMB:
+      stage_point<kTemporal, OP_DENOISE_COMB>(c, S);
+      break;
+    case OP_HARRIS_RESP: stage_point<kTemporal, OP_HARRIS_RESP>(c, S); break;
+    case OP_BG_SUBTRACT:
+      if constexpr (kTemporal) stage_point<true, OP_BG_SUBTRACT>(c, S);
+      break;
+    case OP_FRAME_DIFF:
+      if constexpr (kTemporal) stage_point<true, OP_FRAME_DIFF>(c, S);
+      break;
+    default: stage_point<kTemporal, OP_IDENTITY>(c, S); break;
+  }
+}
+
+// Rows row0 .. row0 + R - 1 of the output block to the output, inside
+// the CTA's strip and band.
+__device__ __forceinline__ void store_output(const Ctx& c) {
+  const float* ob = c.sm + c.P->hdr[H_OSTAGE];
+  float* out = c.O->p[0] + c.frame;
+  if (c.vec) {
+    int i = c.qi0, q = c.qq0;
+    while (i < c.R) {
+      const int row = c.row0 + i, col = c.cbase + 4 * q;
+      if (row >= c.y0 && row < c.y1 && col >= c.x0 && col < c.x1)
+        *reinterpret_cast<float4*>(out + static_cast<size_t>(row) * c.w
+                                   + col) =
+            *reinterpret_cast<const float4*>(ob + i * c.ncols + 4 * q);
+      i += c.qdi;
+      q += c.qdq;
+      if (q >= c.nq) {
+        q -= c.nq;
+        ++i;
+      }
+    }
+    return;
+  }
+  for (int lc = c.tid; lc < c.ncols; lc += c.nt) {
+    const int col = c.cbase + lc;
+    if (col < c.x0 || col >= c.x1) continue;
+    for (int i = 0; i < c.R; ++i) {
+      const int row = c.row0 + i;
+      if (row >= c.y0 && row < c.y1)
+        out[static_cast<size_t>(row) * c.w + col] = ob[i * c.ncols + lc];
+    }
+  }
+}
+
 // kTemporal: the instantiation that also runs history taps, the temporal
 // ops and frame outputs. Spatial programs launch the other one, whose code
 // is the spatial kernel's alone (the temporal cases compile to nothing).
 // kPrefetch: feeds arrive through staging rings (prefetch depth >= 2);
 // without it the feed stages read device memory inline.
 template <bool kTemporal, bool kPrefetch>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 stencil_pipeline_kernel(const __grid_constant__ Program P,
                         const __grid_constant__ Feeds F,
                         const __grid_constant__ Outs O) {
   extern __shared__ float smem[];
+  Ctx c;
+  c.P = &P;
+  c.F = &F;
+  c.O = &O;
+  c.sm = smem;
+  c.R = P.hdr[H_R];
+  c.h = P.hdr[H_H];
+  c.w = P.hdr[H_W];
+  c.ncols = P.hdr[H_NCOLS];
+  c.pitch = P.hdr[H_PITCH];
+  c.pad = P.hdr[H_PAD];
+  c.tid = threadIdx.x;
+  c.nt = blockDim.x;
+  c.vec = P.hdr[H_VEC] != 0;
   const int n_stages = P.hdr[H_NSTAGES];
-  const int R = P.hdr[H_R];
-  const int h = P.hdr[H_H];
-  const int w = P.hdr[H_W];
-  const int ncols = P.hdr[H_NCOLS];
-  // output columns [x0, x1), stored columns [cbase, cbase + ncols)
-  const int x0 = blockIdx.x * P.hdr[H_STRIP_W];
-  const int x1 = min(x0 + P.hdr[H_STRIP_W], w);
-  const int cbase = x0 - P.hdr[H_HALO_LEFT];
-  const int clo = max(cbase, 0);
+  const int n_rings = P.hdr[H_NRINGS];
+  // output columns [x0, x1), computed columns [cbase, cbase + ncols)
+  c.x0 = blockIdx.x * P.hdr[H_STRIP_W];
+  c.x1 = min(c.x0 + P.hdr[H_STRIP_W], c.w);
+  c.cbase = c.x0 - P.hdr[H_HALO_LEFT];
   // output rows [y0, y1), computed from row rlo on
-  const int y0 = blockIdx.y * P.hdr[H_BAND_H];
-  const int y1 = min(y0 + P.hdr[H_BAND_H], h);
-  const int rlo = max(y0 - P.hdr[H_HALO_UP], 0);
-  const size_t hw = static_cast<size_t>(h) * w;
-  const size_t frame = blockIdx.z * hw;
-  const int items = R * ncols;
+  c.y0 = blockIdx.y * P.hdr[H_BAND_H];
+  c.y1 = min(c.y0 + P.hdr[H_BAND_H], c.h);
+  c.rlo = max(c.y0 - P.hdr[H_HALO_UP], 0);
+  c.hw = static_cast<size_t>(c.h) * c.w;
+  c.frame = blockIdx.z * c.hw;
+  // the one division of the vector walk: item tid of nq per row
+  c.nq = c.ncols / 4;
+  c.qi0 = c.tid / c.nq;
+  c.qq0 = c.tid - c.qi0 * c.nq;
+  c.qdi = c.nt / c.nq;
+  c.qdq = c.nt - c.qdi * c.nq;
+  // two tables of each ring's slot of the row group's first row, by
+  // parity of the row group: table t & 1 is read during row group t
+  // while the next one is written
+  int* slots = reinterpret_cast<int*>(smem + P.hdr[H_SLOTS]);
 
-  // prefetch: the feed stage's frame in device memory (a tap of frame b
-  // reads launch frame b - j, or state slot j - b - 1), slot u % depth of
-  // its staging ring, and the copies of step u (none past the band's last
-  // step), committed as one group
+  // zero rings (their pad columns and the rows above rlo stay zero)
+  {
+    const int n4 = P.hdr[H_OSTAGE] / 4;
+    float4* z = reinterpret_cast<float4*>(smem);
+    for (int i = c.tid; i < n4; i += c.nt)
+      z[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int i = c.tid; i < n_rings; i += c.nt) slots[i] = 0;
+  }
+
+  // prefetch: slot u % depth of a feed's staging ring, and the copies of
+  // step u (none past the band's last step), committed as one group
   const int depth = kPrefetch ? P.hdr[H_DEPTH] : 1;
-  const int n_steps = (y1 - rlo + R - 1) / R;
-  auto feed_frame = [&](const int* S) -> const float* {
-    const int b = blockIdx.z, j = S[S_TAPJ];
-    if (S[S_OP] != OP_TAP) return F.p[S[S_FEED]] + frame;
-    return b >= j ? F.p[S[S_FEED]] + (b - j) * hw
-                  : F.p[S[S_STATE]] + (j - b - 1) * hw;
-  };
-  auto slot_of = [&](const int* S, int u) -> float* {
+  const int items = c.R * c.ncols;
+  const int n_steps = (c.y1 - c.rlo + c.R - 1) / c.R;
+  auto staging = [&](const int* S, int u) -> float* {
     return smem + P.hdr[H_STAGING] + (S[S_STAGE] * depth + u % depth) * items;
   };
   auto issue = [&](int u) {
     if (u < n_steps) {
-      const int r0 = rlo + u * R;
+      const int r0 = c.rlo + u * c.R;
       for (int s = 0; s < n_stages; ++s) {
         const int* S = P.st[s];
         if (S[S_STAGE] < 0) continue;
-        const float* src = feed_frame(S);
-        float* dst = slot_of(S, u);
-        for (int idx = threadIdx.x; idx < items; idx += blockDim.x) {
-          const int i = idx / ncols;
-          const int row = r0 + i;
-          const int col = cbase + idx - i * ncols;
-          const bool ok = row < h && col >= 0 && col < w;
-          cp_async4(dst + idx,
-                    ok ? src + static_cast<size_t>(row) * w + col : src, ok);
+        const float* src = feed_frame(c, S);
+        float* dst = staging(S, u);
+        for (int lc = c.tid; lc < c.ncols; lc += c.nt) {
+          const int col = c.cbase + lc;
+          const bool inside = col >= 0 && col < c.w;
+          for (int i = 0; i < c.R; ++i) {
+            const int row = r0 + i;
+            const bool ok = inside && row < c.h;
+            cp_async4(dst + i * c.ncols + lc,
+                      ok ? src + static_cast<size_t>(row) * c.w + col : src,
+                      ok);
+          }
         }
       }
     }
@@ -232,175 +862,65 @@ stencil_pipeline_kernel(const __grid_constant__ Program P,
   if constexpr (kPrefetch) {
     if (P.hdr[H_POISON]) {
       // debug: a read of a slot before its copy lands gives NaN
-      for (int i = P.hdr[H_STAGING] + threadIdx.x;
-           i < P.hdr[H_SMEM_BYTES] / 4; i += blockDim.x)
+      for (int i = P.hdr[H_STAGING] + c.tid; i < P.hdr[H_SMEM_BYTES] / 4;
+           i += c.nt)
         smem[i] = __int_as_float(0x7fc00000);
+      // another thread's copy may land on an element this one poisons
       __syncthreads();
     }
     for (int u = 0; u < depth; ++u) issue(u);
   }
+  __syncthreads();
 
-  int t = 0;
-  for (int row0 = rlo; row0 < y1; row0 += R, ++t) {
+  c.t = 0;
+  for (c.row0 = c.rlo; c.row0 < c.y1; c.row0 += c.R, ++c.t) {
+    const int* cur = slots + (c.t & 1) * kMaxRings;
+    c.slots = cur;
+    // the next row group's table, read after this row group's barriers
+    for (int k = c.tid; k < n_rings; k += c.nt) {
+      const int s = cur[k] + c.R, rows = P.ring[k][1];
+      slots[((c.t + 1) & 1) * kMaxRings + k] = s >= rows ? s - rows : s;
+    }
     // this thread's copies of step t have landed
     if constexpr (kPrefetch) cp_async_wait(depth - 1);
     for (int s = 0; s < n_stages; ++s) {
       const int* S = P.st[s];
-      const int op = S[S_OP];
-      const float* wt = P.wts + S[S_WOFF];
-      for (int idx = threadIdx.x; idx < items; idx += blockDim.x) {
-        const int i = idx / ncols;
-        const int lc = idx - i * ncols;
-        const int row = row0 + i;
-        const int col = cbase + lc;
-        // window element (dt, dy, dx) of operand j: pixel
-        // (row - sh + 1 + dy, col - sw + 1 + dx) of ring first + dt
-        // (time index st - 1, the current frame, is the producer's ring)
-        auto tap3 = [&](int j, int dt, int dy, int dx) -> float {
-          const int r = row - S[S_SH + j] + 1 + dy;
-          const int c = col - S[S_SW + j] + 1 + dx;
-          if (r < rlo || c < clo) return 0.f;
-          const int* rg = P.ring[S[S_SRC + j] + dt];
-          return smem[rg[0] + (r % rg[1]) * ncols + (c - cbase)];
-        };
-        auto tap = [&](int j, int dy, int dx) -> float {
-          return tap3(j, 0, dy, dx);
-        };
-        float v = 0.f;
-        switch (op) {
-          case OP_INPUT:
-            if constexpr (kPrefetch)
-              v = slot_of(S, t)[idx];
-            else if (row < h && col >= 0 && col < w)
-              v = __ldg(F.p[S[S_FEED]] + frame + static_cast<size_t>(row) * w
-                        + col);
-            break;
-          case OP_TAP:
-            if constexpr (kPrefetch) {
-              if (kTemporal) v = slot_of(S, t)[idx];
-            } else if (kTemporal && row < h && col >= 0 && col < w) {
-              // frame b's tap j is launch frame b - j, or state slot
-              // j - b - 1 (newest first) when that frame precedes it
-              const int b = blockIdx.z, j = S[S_TAPJ];
-              const float* src = b >= j
-                  ? F.p[S[S_FEED]] + (b - j) * hw
-                  : F.p[S[S_STATE]] + (j - b - 1) * hw;
-              v = __ldg(src + static_cast<size_t>(row) * w + col);
-            }
-            break;
-          case OP_STMEAN: {
-            if (!kTemporal) break;
-            // dt-major, then dy, then dx; one multiply by 1/(st*sh*sw)
-            const int st = S[S_ST], sh = S[S_SH], sw = S[S_SW];
-            int k = 0;
-            for (int dt = 0; dt < st; ++dt)
-              for (int dy = 0; dy < sh; ++dy)
-                for (int dx = 0; dx < sw; ++dx, ++k) {
-                  const float t = tap3(0, dt, dy, dx);
-                  v = k ? __fadd_rn(v, t) : t;
-                }
-            v = __fmul_rn(v, wt[0]);
-            break;
-          }
-          case OP_FRAME_DIFF:
-            if (kTemporal)
-              v = fabsf(__fsub_rn(tap3(0, 1, 0, 0), tap3(0, 0, 0, 0)));
-            break;
-          case OP_BG_SUBTRACT: {
-            if (!kTemporal) break;
-            const float d = fabsf(__fsub_rn(tap(0, 0, 0), tap(1, 0, 0)));
-            v = d > wt[0] ? d : 0.f;
-            break;
-          }
-          case OP_RELAY:
-          case OP_IDENTITY:
-            v = tap(0, 0, 0);
-            break;
-          case OP_CONV: {
-            const int sh = S[S_SH], sw = S[S_SW];
-            int k = 0;
-            for (int dy = 0; dy < sh; ++dy)
-              for (int dx = 0; dx < sw; ++dx, ++k) {
-                const float t = __fmul_rn(wt[k], tap(0, dy, dx));
-                v = k ? __fadd_rn(v, t) : t;
-              }
-            break;
-          }
-          case OP_SQUARE: {
-            const float a = tap(0, 0, 0);
-            v = __fmul_rn(a, a);
-            break;
-          }
-          case OP_MAG: {
-            const float a = tap(0, 0, 0), b = tap(1, 0, 0);
-            v = __fsqrt_rn(__fadd_rn(__fadd_rn(__fmul_rn(a, a),
-                                               __fmul_rn(b, b)), wt[0]));
-            break;
-          }
-          case OP_PROD:
-            v = __fmul_rn(tap(0, 0, 0), tap(1, 0, 0));
-            break;
-          case OP_NMS: {
-            // centre [-2, -2] when sw >= 2, else [-1, -1]; the max runs
-            // over the zero-padded cells too
-            const int sh = S[S_SH], sw = S[S_SW];
-            const float c = sw >= 2 ? tap(0, sh - 2, sw - 2)
-                                    : tap(0, sh - 1, sw - 1);
-            float m = tap(0, 0, 0);
-            for (int dy = 0; dy < sh; ++dy)
-              for (int dx = 0; dx < sw; ++dx) m = fmaxf(m, tap(0, dy, dx));
-            v = c >= m ? c : 0.f;
-            break;
-          }
-          case OP_THRESH: {
-            const float a = tap(0, 0, 0);
-            v = a > wt[0] ? a : 0.f;
-            break;
-          }
-          case OP_UNSHARP: {
-            const float o = tap(0, 0, 0), b = tap(1, 0, 0);
-            v = __fadd_rn(o, __fmul_rn(wt[0], __fsub_rn(o, b)));
-            break;
-          }
-          case OP_XCORR: {
-            const int sh = S[S_SH];
-            for (int dy = 0; dy < sh; ++dy) {
-              const float t = __fmul_rn(wt[dy], tap(0, dy, 0));
-              v = dy ? __fadd_rn(v, t) : t;
-            }
-            v = __fsub_rn(v, tap(1, 0, 0));
-            break;
-          }
-          case OP_DENOISE_COMB: {
-            const float o = tap(0, 0, 0), b = tap(1, 0, 0), l = tap(2, 0, 0);
-            const float e = fminf(fmaxf(fabsf(l), 0.f), 1.f);
-            v = __fadd_rn(__fmul_rn(e, o), __fmul_rn(__fsub_rn(1.f, e), b));
-            break;
-          }
-          case OP_HARRIS_RESP: {
-            const float a = tap(0, 0, 0);
-            v = __fsub_rn(a, __fmul_rn(__fmul_rn(wt[0], a), a));
-            break;
-          }
-        }
-        if (S[S_RING] >= 0) {
-          const int* rg = P.ring[S[S_RING]];
-          smem[rg[0] + (row % rg[1]) * ncols + lc] = v;
-        }
-        const bool fout = kTemporal && S[S_FOUT] >= 0;
-        if ((S[S_FINAL] || fout) && row >= y0 && row < y1 && col >= x0
-            && col < x1) {
-          const size_t px = frame + static_cast<size_t>(row) * w + col;
-          if (S[S_FINAL]) O.p[0][px] = v;
-          if (fout) O.p[S[S_FOUT]][px] = v;
-        }
+      switch (S[S_KIND]) {
+        case K_FEED:
+          stage_feed<kTemporal, kPrefetch>(
+              c, S, kPrefetch && S[S_STAGE] >= 0 ? staging(S, c.t) : nullptr);
+          break;
+        case K_POINT: stage_point_op<kTemporal>(c, S); break;
+        case K_CONV_1x5: stage_conv<kTemporal, 1, 5>(c, S); break;
+        case K_CONV_5x1: stage_conv<kTemporal, 5, 1>(c, S); break;
+        case K_CONV_1x3: stage_conv<kTemporal, 1, 3>(c, S); break;
+        case K_CONV_3x1: stage_conv<kTemporal, 3, 1>(c, S); break;
+        case K_CONV_3x3: stage_conv<kTemporal, 3, 3>(c, S); break;
+        case K_NMS_3x3: stage_nms3<kTemporal>(c, S); break;
+        case K_XCORR_18: stage_xcorr18<kTemporal>(c, S); break;
+        case K_STMEAN_4:
+          if constexpr (kTemporal) stage_stmean<4, 1, 1>(c, S);
+          break;
+        case K_STMEAN_8:
+          if constexpr (kTemporal) stage_stmean<8, 1, 1>(c, S);
+          break;
+        case K_STMEAN_333:
+          if constexpr (kTemporal) stage_stmean<3, 3, 3>(c, S);
+          break;
+        default: stage_generic<kTemporal>(c, S); break;
       }
-      // the next stage reads this stage's ring; the next row group
-      // overwrites ring rows this stage's consumers have read
-      __syncthreads();
+      // the next level reads this level's rings; after the last level
+      // the next row group may overwrite every ring row read here. Level
+      // 0 (the feeds) first waits for its copies at depth 1.
+      if (S[S_SYNC]) {
+        if (!kPrefetch && S[S_KIND] == K_FEED) cp_async_wait_all();
+        __syncthreads();
+      }
     }
+    store_output(c);
+    if (P.hdr[H_OSYNC]) __syncthreads();
     // step t's slots are read: refill them with step t + depth
-    if constexpr (kPrefetch) issue(t + depth);
+    if constexpr (kPrefetch) issue(c.t + depth);
   }
 }
 
@@ -418,8 +938,10 @@ Kernel pick_kernel(int temporal, int prefetch) {
 
 // table: kHdr + kMaxStages * kStageInts + kMaxRings * 2 ints; wts: kMaxWts
 // floats; feeds: kMaxFeeds device pointers (inputs, then frame-ring
-// states); outs: kMaxOuts (the output, then frame outputs). Launches on
-// ``stream`` and returns the cudaError_t of the launch (0 on success).
+// states); outs: kMaxOuts (the output, then frame outputs). Vector I/O
+// needs every pointer 16-byte aligned; the launch falls back to scalar
+// I/O otherwise. Launches on ``stream`` and returns the cudaError_t of
+// the launch (0 on success).
 extern "C" int stencil_pipeline_launch(const int* table, const float* wts,
                                        const void* const* feeds,
                                        void* const* outs,
@@ -431,16 +953,23 @@ extern "C" int stencil_pipeline_launch(const int* table, const float* wts,
   memcpy(P.ring, table + kHdr + kMaxStages * kStageInts, sizeof(P.ring));
   memcpy(P.wts, wts, sizeof(P.wts));
   Feeds F;
-  for (int i = 0; i < kMaxFeeds; ++i)
+  uintptr_t bits = 0;
+  for (int i = 0; i < kMaxFeeds; ++i) {
     F.p[i] = static_cast<const float*>(feeds[i]);
+    bits |= reinterpret_cast<uintptr_t>(feeds[i]);
+  }
   Outs O;
-  for (int i = 0; i < kMaxOuts; ++i) O.p[i] = static_cast<float*>(outs[i]);
+  for (int i = 0; i < kMaxOuts; ++i) {
+    O.p[i] = static_cast<float*>(outs[i]);
+    bits |= reinterpret_cast<uintptr_t>(outs[i]);
+  }
+  if (bits & 15) P.hdr[H_VEC] = 0;
   const int smem = P.hdr[H_SMEM_BYTES];
   const Kernel kernel = pick_kernel(P.hdr[H_TEMPORAL], P.hdr[H_DEPTH] > 1);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3(grid_x, grid_y, grid_z), kThreads, smem,
+  kernel<<<dim3(grid_x, grid_y, grid_z), P.hdr[H_THREADS], smem,
            static_cast<cudaStream_t>(stream)>>>(P, F, O);
   return static_cast<int>(cudaGetLastError());
 }
@@ -450,15 +979,16 @@ extern "C" const char* stencil_pipeline_error_string(int code) {
 }
 
 // CTAs of the kernel (the temporal instantiation when ``temporal``, the
-// staging one when ``prefetch``) that fit on one SM at ``smem_bytes`` of
-// dynamic shared memory each, written to ``*blocks``; returns the
-// cudaError_t.
+// staging one when ``prefetch``) that fit on one SM at ``threads``
+// threads and ``smem_bytes`` of dynamic shared memory each, written to
+// ``*blocks``; returns the cudaError_t.
 extern "C" int stencil_pipeline_blocks_per_sm(int smem_bytes, int temporal,
-                                              int prefetch, int* blocks) {
+                                              int prefetch, int threads,
+                                              int* blocks) {
   const Kernel kernel = pick_kernel(temporal, prefetch);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, kernel, kThreads, smem_bytes));
+      blocks, kernel, threads, smem_bytes));
 }

@@ -64,22 +64,56 @@ _CONSTS = {"mag": 1, "thresh": 1, "unsharp": 1, "harris_resp": 1,
 _TEMPORAL_OPS = ("stmean", "frame_diff")
 
 # table layout, as in csrc/stencil_pipeline.cu
-HDR, MAX_STAGES, STAGE_INTS, MAX_RINGS = 16, 24, 24, 24
+HDR, MAX_STAGES, STAGE_INTS, MAX_RINGS = 24, 24, 24, 24
 MAX_WTS, MAX_FEEDS, MAX_OUTS, MAX_SRC = 256, 8, 4, 3
 TABLE_INTS = HDR + MAX_STAGES * STAGE_INTS + MAX_RINGS * 2
 (H_NSTAGES, H_R, H_H, H_W, H_STRIP_W, H_HALO_LEFT, H_NCOLS, H_BAND_H,
- H_HALO_UP, H_SMEM_BYTES, H_TEMPORAL, H_DEPTH, H_STAGING,
- H_POISON) = range(14)
+ H_HALO_UP, H_SMEM_BYTES, H_TEMPORAL, H_DEPTH, H_STAGING, H_POISON,
+ H_PAD, H_PITCH, H_OSTAGE, H_SLOTS, H_NRINGS, H_VEC, H_THREADS,
+ H_OSYNC) = range(22)
 (S_OP, S_RING, S_FINAL, S_FEED, S_NSRC, S_WOFF, S_FOUT, S_STATE,
  S_TAPJ) = range(9)
-S_SRC, S_ST, S_SH, S_SW, S_STAGE = 9, 12, 15, 18, 21
+S_SRC, S_ST, S_SH, S_SW, S_STAGE, S_KIND, S_SYNC = 9, 12, 15, 18, 21, 22, 23
 
-# Launch geometry from perf/geometry_sweep.py at 1080p, R=8: faster than
-# every 128-column cell for all seven pipelines, at one frame and at four
-# (PERF.md).
-STRIP_W = 64           # output columns per CTA
+# stage bodies, in the order of ``enum Kind`` in csrc/stencil_pipeline.cu:
+# a feed (input or history tap), a pointwise op on 1x1 operands, and the
+# window shapes the registered pipelines use, unrolled; anything else
+# takes the generic body
+KINDS = ("generic", "feed", "point", "conv1x5", "conv5x1", "conv1x3",
+         "conv3x1", "conv3x3", "nms3x3", "xcorr18", "stmean4", "stmean8",
+         "stmean333")
+_POINT_OPS = ("relay", "identity", "square", "mag", "prod", "thresh",
+              "unsharp", "denoise_comb", "harris_resp", "bg_subtract",
+              "frame_diff")
+
+# Launch geometry from perf/geometry_sweep.py at 1080p, R=8 (PERF.md).
+STRIP_W = 240          # output columns per CTA
+THREADS = 256          # threads per CTA at most (one per ring column)
 SMEM_LIMIT = 232_448   # shared memory one H100 block may reserve (227 KB)
-TARGET_CTAS = 2112     # sixteen CTAs for each of an H100's 132 SMs
+TARGET_CTAS = 1056     # CTAs a launch aims for
+
+
+def stage_kind(op: str, srcs: Sequence[tuple[str, int, int, int]]) -> str:
+    """The kernel body that runs a payload stage of ``op`` over operand
+    windows ``srcs`` [(producer, st, sh, sw)]: an unrolled one for the
+    shapes the registered pipelines use, else ``generic``."""
+    shapes = [(t, sh, sw) for _, t, sh, sw in srcs]
+    if op in _POINT_OPS and all(s[1:] == (1, 1) for s in shapes) and (
+            op == "frame_diff" or all(s[0] == 1 for s in shapes)):
+        return "point"
+    one = shapes[0] if len(shapes) == 1 else None
+    if op == "conv" and one and one[0] == 1:
+        name = f"conv{one[1]}x{one[2]}"
+        return name if name in KINDS else "generic"
+    if op == "nms" and one == (1, 3, 3):
+        return "nms3x3"
+    if op == "xcorr" and shapes == [(1, 18, 1), (1, 1, 1)]:
+        return "xcorr18"
+    if op == "stmean" and one in ((4, 1, 1), (8, 1, 1)):
+        return f"stmean{one[0]}"
+    if op == "stmean" and one == (3, 3, 3):
+        return "stmean333"
+    return "generic"
 
 
 def smem_rings(dag: PipelineDAG, alloc_buffers: Mapping | None,
@@ -154,18 +188,38 @@ class StencilProgram:
 def _band_height(h: int, strips: int, frames: int, halo_up: int,
                  rows_per_step: int, target_ctas: int) -> int:
     """Rows per band: enough bands to give ~target_ctas CTAs per launch,
-    but no band shorter than four top halos (recompute <= 25%)."""
+    but no band shorter than four top halos (recompute <= 25%), grown so
+    that an inner band and its top halo fill whole row groups (no CTA
+    computes rows past its band)."""
     min_band = max(rows_per_step, 4 * halo_up, 16)
     want = -(-target_ctas // (strips * frames))
     n_bands = max(1, min(want, h // min_band))
-    return -(-h // n_bands)
+    band = -(-h // n_bands)
+    if band < h:
+        r = rows_per_step
+        band = -(-(band + halo_up) // r) * r - halo_up
+    return band
+
+
+def _levels(dag: PipelineDAG, stages: Sequence) -> dict:
+    """DAG level of each kernel stage: 0 for a feed (input or history
+    tap), else one more than its deepest producer. Stages of one level
+    read only rings of earlier levels, so they share one barrier."""
+    level: dict = {}
+    for n in stages:
+        if isinstance(n, tuple) or dag.stages[n].is_input:
+            level[n] = 0
+        else:
+            level[n] = 1 + max(level[e.producer] for e in dag.in_edges(n))
+    return level
 
 
 def build_program(dag: PipelineDAG, h: int, w: int, rows_per_step: int,
                   frames: int = 1,
                   alloc_buffers: Mapping | None = None, *,
-                  strip_w: int = STRIP_W,
+                  strip_w: int | None = None,
                   target_ctas: int = TARGET_CTAS,
+                  threads: int = THREADS,
                   prefetch_depth: int = 1,
                   poison_staging: bool = False) -> StencilProgram:
     """Resolve ``dag`` into the kernel's stage table for (h, w) frames.
@@ -174,17 +228,30 @@ def build_program(dag: PipelineDAG, h: int, w: int, rows_per_step: int,
     (window-key order) to its op's operands. A temporal DAG gets one tap
     stage per (producer, j frames back) ahead of the other stages, and
     each producer's rings are laid out oldest tap first, live ring last,
-    so an operand's (first ring, st) spans its time window. ``frames``
-    is the batch the launch geometry is sized for; ``strip_w`` and
-    ``target_ctas`` set that geometry (the defaults are what the
-    executors use; other values serve the geometry sweep).
+    so an operand's (first ring, st) spans its time window. Stages are
+    ordered by DAG level, and only the last stage of a level ends in a
+    block barrier. Each stage names the kernel body that runs it
+    (:func:`stage_kind`). ``frames`` is the batch the launch geometry is
+    sized for; ``strip_w``, ``target_ctas`` and ``threads`` (threads per
+    CTA at most) set that geometry (the defaults are what the executors
+    use; other values serve the geometry sweep). With no ``strip_w`` the
+    strip is ``STRIP_W`` columns, halved until the shared memory fits
+    the block limit (deep staging rings need narrow strips).
+
+    A CTA computes ``ncols`` columns: its strip and the left halo, the
+    halo rounded up to 4 columns where the frame allows 16-byte vectors
+    (w % 4 == 0 and strip_w % 4 == 0), the whole rounded up to a warp.
+    Each ring row holds ``pad`` zero columns (the widest window's sw - 1,
+    rounded up to 4) left of them, so the frame's left edge reads zero
+    with no test. Beside the rings the CTA keeps R rows of the output
+    stage and the rings' row table.
 
     At ``prefetch_depth`` d >= 2 each feed stage (each input and each
     history tap) gets a staging ring of d slots of R x ``ncols`` floats,
-    so the bill is the line rings plus d * R * ncols * 4 bytes per feed.
-    Outputs are stored directly, so unlike ``codegen.prefetch_ring_bytes``
-    (the TPU's VMEM arithmetic: input and output rings, lanes padded to
-    128) the bill has no output rings and no padding.
+    so the bill is the depth-1 bill plus d * R * ncols * 4 bytes per
+    feed. Outputs are stored from shared memory, so unlike
+    ``codegen.prefetch_ring_bytes`` (the TPU's VMEM arithmetic: input
+    and output rings, lanes padded to 128) the bill has no output rings.
     ``poison_staging`` makes the kernel fill its staging rings with NaN
     before the first copy, so a read that overtakes its copy shows.
     Raises ValueError for a DAG the kernel cannot run (unknown payload,
@@ -196,10 +263,11 @@ def build_program(dag: PipelineDAG, h: int, w: int, rows_per_step: int,
     if prefetch_depth < 1:
         raise ValueError(f"prefetch_depth must be >= 1, got "
                          f"{prefetch_depth}")
+    if not 32 <= threads <= THREADS or threads % 32:
+        raise ValueError(f"threads must be a multiple of 32 in [32, "
+                         f"{THREADS}], got {threads}")
     r = rows_per_step
-    up, left = dag.cumulative_extent()
-    strip_w = min(strip_w, w)
-    ncols = strip_w + left
+    up, left0 = dag.cumulative_extent()
     live = smem_rings(dag, alloc_buffers, r)
     taps = smem_tap_rings(dag, r)
     depths = dag.temporal_depths()
@@ -218,6 +286,8 @@ def build_program(dag: PipelineDAG, h: int, w: int, rows_per_step: int,
     final = dag.in_edges(out_stage)[0].producer
     stages = list(temporal_taps(dag)) \
         + [n for n in dag.topo_order if not dag.stages[n].is_output]
+    level = _levels(dag, stages)
+    stages.sort(key=level.__getitem__)
     n_feeds = len(feeds) + len(states)
     if len(stages) > MAX_STAGES or len(ring_rows) > MAX_RINGS \
             or n_feeds > MAX_FEEDS or 1 + len(fouts) > MAX_OUTS:
@@ -230,8 +300,25 @@ def build_program(dag: PipelineDAG, h: int, w: int, rows_per_step: int,
     staged = [n for n in stages
               if isinstance(n, tuple) or dag.stages[n].is_input] \
         if prefetch_depth > 1 else []
-    staging = len(staged) * prefetch_depth * r * ncols * 4
-    smem = sum(ring_rows) * ncols * 4 + staging
+    sw_max = max((e.sw for e in dag.edges), default=1)
+    pad = -(-(sw_max - 1) // 4) * 4
+    narrow = strip_w is None
+    strip_w = STRIP_W if narrow else strip_w
+    while True:
+        strip_w = min(strip_w, w)
+        vec = w % 4 == 0 and strip_w % 4 == 0
+        left = -(-left0 // 4) * 4 if vec else left0
+        ncols = -(-(strip_w + left) // 32) * 32
+        pitch = pad + ncols
+        rings_floats = sum(ring_rows) * pitch
+        # the output stage's R rows, then two row tables of MAX_RINGS ints
+        slots = rings_floats + r * ncols
+        staging_at = slots + 2 * MAX_RINGS
+        staging = len(staged) * prefetch_depth * r * ncols * 4
+        smem = staging_at * 4 + staging
+        if smem <= SMEM_LIMIT or not narrow or strip_w <= 32:
+            break
+        strip_w = max(strip_w // 8 * 4, 32)
     if smem > SMEM_LIMIT:
         raise ValueError(f"{dag.name}: rings need {smem} bytes of shared "
                          f"memory at R={r}, depth {prefetch_depth}, over "
@@ -245,6 +332,10 @@ def build_program(dag: PipelineDAG, h: int, w: int, rows_per_step: int,
         row[S_FOUT] = 1 + fouts.index(name) if name in fouts else -1
         row[S_STAGE] = staged.index(name) if name in staged else -1
         row[S_WOFF] = len(wts)
+        row[S_KIND] = KINDS.index("feed")
+        # the last stage of a level ends in a barrier
+        row[S_SYNC] = int(s + 1 == len(stages)
+                          or level[stages[s + 1]] > level[name])
         if isinstance(name, tuple):         # history tap (producer, j)
             p, j = name
             row[S_OP] = OPS.index("tap")
@@ -266,6 +357,7 @@ def build_program(dag: PipelineDAG, h: int, w: int, rows_per_step: int,
         else:
             op, srcs = _payload_operands(dag.name, name, st.fn, ins, wts)
         row[S_OP] = OPS.index(op)
+        row[S_KIND] = KINDS.index(stage_kind(op, srcs))
         row[S_NSRC] = len(srcs)
         for j, (p, t, sh, sw) in enumerate(srcs):
             # time index dt reads ring first + dt; st - 1 is p's live ring
@@ -278,14 +370,19 @@ def build_program(dag: PipelineDAG, h: int, w: int, rows_per_step: int,
     base = HDR + MAX_STAGES * STAGE_INTS
     for i, rows in enumerate(ring_rows):
         table[base + 2 * i: base + 2 * i + 2] = (off, rows)
-        off += rows * ncols
+        off += rows * pitch
     grid_x = -(-w // strip_w)
     band_h = _band_height(h, grid_x, frames, up, r, target_ctas)
     # temporal programs launch the kernel's temporal instantiation, and
-    # depth >= 2 its staging one
-    table[:H_POISON + 1] = (len(stages), r, h, w, strip_w, left, ncols,
-                            band_h, up, smem, int(bool(states)),
-                            prefetch_depth, off, int(poison_staging))
+    # depth >= 2 its staging one; the launch clears H_VEC when a tensor
+    # is not 16-byte aligned. A final stage of level 0 (an input wired
+    # to the output) writes the output rows before the first barrier, so
+    # their store ends in one of its own (H_OSYNC).
+    table[:H_OSYNC + 1] = (
+        len(stages), r, h, w, strip_w, left, ncols, band_h, up, smem,
+        int(bool(states)), prefetch_depth, staging_at, int(poison_staging),
+        pad, pitch, rings_floats, slots, len(ring_rows), int(vec),
+        min(threads, ncols), int(level[final] == 0))
     wt = np.zeros(MAX_WTS, np.float32)
     wt[:len(wts)] = wts
     return StencilProgram(dag=dag, h=h, w=w, rows_per_step=r, feeds=feeds,
@@ -417,7 +514,7 @@ def _lib() -> ctypes.CDLL:
         lib.stencil_pipeline_error_string.argtypes = [ctypes.c_int]
         lib.stencil_pipeline_error_string.restype = ctypes.c_char_p
         lib.stencil_pipeline_blocks_per_sm.argtypes = [
-            ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.POINTER(ctypes.c_int)]
     return lib
 
@@ -429,14 +526,15 @@ def _check(lib: ctypes.CDLL, rc: int, what: str) -> None:
 
 
 def blocks_per_sm(program: StencilProgram) -> int:
-    """CTAs of the kernel resident on one SM at ``program``'s shared
-    memory (the CUDA occupancy calculator; needs the card)."""
+    """CTAs of the kernel resident on one SM at ``program``'s threads
+    and shared memory (the CUDA occupancy calculator; needs the card)."""
     lib = _lib()
     n = ctypes.c_int(0)
     temporal = int(program.table[H_TEMPORAL])
     prefetch = int(program.prefetch_depth > 1)
     _check(lib, lib.stencil_pipeline_blocks_per_sm(
-        program.smem_bytes, temporal, prefetch, ctypes.byref(n)),
+        program.smem_bytes, temporal, prefetch,
+        int(program.table[H_THREADS]), ctypes.byref(n)),
         "occupancy query")
     return n.value
 

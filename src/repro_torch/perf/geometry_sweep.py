@@ -5,9 +5,13 @@
 For each of the seven spatial pipelines at 1080p and R=8, single frames
 and batches of four, times one launch (CUDA events, mean over ``--iters``
 launches after two warm-up launches) for every (strip width, CTA target)
-pair, and prints one JSON line per cell: the CTAs of the launch, how many
-fit on one SM at its shared memory, the waves that makes, and the time.
-Every output is checked bitwise against the default geometry's. Needs an
+pair at the default threads per CTA, and for every (strip width,
+threads) pair at the default CTA target, and prints one JSON line per
+cell: the
+strip, band height and threads, the CTAs of the launch, how many fit on
+one SM at its threads and shared memory, the waves that makes, the halo
+recompute (pixels computed per stage over output pixels), and the time. Every
+output is checked bitwise against the default geometry's. Needs an
 NVIDIA GPU; the card's name and power limit come first.
 """
 from __future__ import annotations
@@ -23,8 +27,9 @@ from repro_torch.core import algorithms
 from repro_torch.core.codegen import compile_pipeline
 from repro_torch.kernels import stencil_pipeline as sp
 
-STRIPS = (64, 128)
+STRIPS = (56, 120, 240, 496)
 TARGETS = (264, 528, 1056, 2112, 4224)
+THREADS = (128, 256)
 H, W, R = 1080, 1920, 8
 
 
@@ -64,28 +69,37 @@ def main(argv=None) -> None:
             base = sp.build_program(dag, H, W, R, frames=frames,
                                     alloc_buffers=plan.alloc.buffers)
             ref = sp.stencil_pipeline(base, [x])
-            for strip in STRIPS:
-                for target in TARGETS:
-                    prog = sp.build_program(
-                        dag, H, W, R, frames=frames,
-                        alloc_buffers=plan.alloc.buffers, strip_w=strip,
-                        target_ctas=target)
-                    out = sp.stencil_pipeline(prog, [x])
-                    if not torch.equal(out, ref):
-                        raise SystemExit(f"{name} strip={strip} target="
-                                         f"{target}: output differs")
-                    occ = sp.blocks_per_sm(prog)
-                    ctas = prog.grid_x * prog.grid_y * frames
-                    print(json.dumps({
-                        "pipeline": name, "frames": frames,
-                        "strip_w": strip, "target_ctas": target,
-                        "band_h": prog.band_h, "ctas": ctas,
-                        "smem_bytes": prog.smem_bytes,
-                        "blocks_per_sm": occ, "waves": ctas / (occ * sms),
-                        "default": (strip, target) == (sp.STRIP_W,
-                                                       sp.TARGET_CTAS),
-                        "ms": _ms(lambda: sp.stencil_pipeline(prog, [x]),
-                                  args.iters)}), flush=True)
+            cells = [(s, t, sp.THREADS) for s in STRIPS for t in TARGETS]
+            cells += [(s, sp.TARGET_CTAS, n) for s in STRIPS
+                      for n in THREADS if n != sp.THREADS]
+            for strip, target, threads in cells:
+                prog = sp.build_program(
+                    dag, H, W, R, frames=frames,
+                    alloc_buffers=plan.alloc.buffers, strip_w=strip,
+                    target_ctas=target, threads=threads)
+                out = sp.stencil_pipeline(prog, [x])
+                if not torch.equal(out, ref):
+                    raise SystemExit(f"{name} strip={strip} target="
+                                     f"{target} threads={threads}: "
+                                     f"output differs")
+                occ = sp.blocks_per_sm(prog)
+                ctas = prog.grid_x * prog.grid_y * frames
+                up = int(prog.table[sp.H_HALO_UP])
+                rows = sum(-(-(min(y + prog.band_h, H) - max(y - up, 0))
+                             // R) * R for y in range(0, H, prog.band_h))
+                cols = prog.grid_x * int(prog.table[sp.H_NCOLS])
+                print(json.dumps({
+                    "pipeline": name, "frames": frames,
+                    "strip_w": strip, "target_ctas": target,
+                    "threads": int(prog.table[sp.H_THREADS]),
+                    "band_h": prog.band_h, "ctas": ctas,
+                    "smem_bytes": prog.smem_bytes,
+                    "blocks_per_sm": occ, "waves": ctas / (occ * sms),
+                    "recompute": rows * cols / (H * W),
+                    "default": (strip, target, threads) == (
+                        sp.STRIP_W, sp.TARGET_CTAS, sp.THREADS),
+                    "ms": _ms(lambda: sp.stencil_pipeline(prog, [x]),
+                              args.iters)}), flush=True)
 
 
 if __name__ == "__main__":

@@ -9,13 +9,17 @@ card (unpack the other commit with ``git archive`` and run parent,
 change, change, parent). For each of the seven spatial pipelines at
 1080p, R=8 and a batch of four frames, and each of the four video
 pipelines over a chunk of four frames and random frame-ring states, at
-the executors' default launch geometry, prints one JSON line with the
-mean time of one launch (CUDA events over ``--iters`` launches after two
-warm-up launches) and a hash of the output, so two trees can also be
-checked for equal pixels. Uses only ``build_program`` and the wrapper,
-whose signatures every tree of the port shares; ``--depth`` above 1
-passes ``prefetch_depth``, which only trees with the prefetch kernel
-take. Needs an NVIDIA GPU; the card's name and power limit come first.
+the executors' default launch geometry, prints one JSON line with both
+clocks -- the mean time of one call (CUDA events over ``--iters`` calls
+after two warm-up calls, host included) and the kernel's device time
+(``perf/timing.py::device_ms``, the profiler) -- the CTAs, threads,
+shared memory and CTAs per SM of the launch, and a hash of the output,
+so two trees can also be checked for equal pixels. A last line holds
+ptxas's registers and spill bytes per instantiation and the sums. Uses
+only ``build_program``, the wrapper and ``blocks_per_sm``, whose
+signatures every tree of the port shares; ``--depth`` above 1 passes
+``prefetch_depth``, which only trees with the prefetch kernel take.
+Needs an NVIDIA GPU; the card's name and power limit come first.
 """
 from __future__ import annotations
 
@@ -29,23 +33,11 @@ import torch
 
 from repro_torch.core import algorithms
 from repro_torch.core.codegen import compile_pipeline
+from repro_torch.kernels import _build
 from repro_torch.kernels import stencil_pipeline as sp
+from repro_torch.perf.timing import device_ms, event_ms
 
 H, W, R, B = 1080, 1920, 8, 4
-
-
-def _ms(fn, iters: int) -> float:
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def main(argv=None) -> None:
@@ -67,6 +59,7 @@ def main(argv=None) -> None:
     dags = [algorithms.ALGORITHMS[n]() for n in sorted(algorithms.ALGORITHMS)]
     dags += [algorithms.VIDEO_ALGORITHMS[n]()
              for n in sorted(algorithms.VIDEO_ALGORITHMS)]
+    sums: dict[str, float] = {}
     for dag in dags:
         plan = compile_pipeline(dag, W)
         prog = sp.build_program(dag, H, W, R, frames=B,
@@ -77,12 +70,29 @@ def main(argv=None) -> None:
                   for p in prog.states]
         out = sp.stencil_pipeline(prog, [x], states)
         digest = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
+
+        def call():
+            sp.stencil_pipeline(prog, [x], states)
+        ms = event_ms(call, args.iters)
+        dev_ms = device_ms(call, args.iters)[0]
+        kind = "video" if dag.is_temporal() else "spatial"
+        sums[f"{kind}_ms"] = sums.get(f"{kind}_ms", 0.0) + ms
+        sums[f"{kind}_device_ms"] = sums.get(f"{kind}_device_ms", 0.0) \
+            + dev_ms
+        threads = int(prog.table[sp.H_THREADS]) \
+            if hasattr(sp, "H_THREADS") else 256
         print(json.dumps({
             "tag": args.tag, "pipeline": dag.name, "frames": B,
-            "depth": args.depth, "smem_bytes": prog.smem_bytes,
-            "ms": _ms(lambda: sp.stencil_pipeline(prog, [x], states),
-                      args.iters),
+            "depth": args.depth, "strip_w": prog.strip_w,
+            "band_h": prog.band_h,
+            "ctas": prog.grid_x * prog.grid_y * B, "threads": threads,
+            "smem_bytes": prog.smem_bytes,
+            "blocks_per_sm": sp.blocks_per_sm(prog),
+            "ms": ms, "device_ms": dev_ms,
             "output_sha256": digest[:16]}), flush=True)
+    print(json.dumps({"tag": args.tag, "depth": args.depth, **sums,
+                      "ptxas": _build.ptxas("stencil_pipeline")}),
+          flush=True)
 
 
 if __name__ == "__main__":

@@ -38,6 +38,21 @@ def _tinternal():
     return p.build()
 
 
+def _generic(temporal: bool = False):
+    """Windows no registered pipeline uses (the kernel's generic body): a
+    7x2 conv, a 5x4 nms and, temporal, a (2, 3, 1) stmean."""
+    taps = np.random.RandomState(9).randn(7, 2).astype(np.float32)
+    p = Pipeline("tgeneric" if temporal else "generic")
+    x = p.input("in")
+    a = p.stage("a", [(x, 7, 2)], algorithms.conv_fn(taps))
+    n = p.stage("n", [(a, 5, 4)], algorithms.nms_fn)
+    if temporal:
+        m = p.stage("m", [(x, 2, 3, 1)], algorithms.stmean_fn(2, 3, 1))
+        n = p.stage("j", [(n, 1, 1), (m, 1, 1)], algorithms.prod_fn)
+    p.output("out", [(n, 1, 1)])
+    return p.build()
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -63,6 +78,41 @@ def test_kernel_matches_plain_bitwise(cuda_device, name, r):
     torch.cuda.synchronize()
     assert sp.stencil_pipeline.launches == before + 1
     assert torch.equal(got, sp.stencil_pipeline_plain(dag, {"in": frames}))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [1, 8])
+@pytest.mark.parametrize("name", ["generic", "tgeneric", "canny-m",
+                                  "through"])
+def test_generic_body_and_vector_io_match_plain_bitwise(cuda_device, name,
+                                                        r):
+    """The generic body (a DSL pipeline with unusual windows, spatial and
+    temporal over random frame-ring states), canny-m and an output wired
+    straight to the input, at a scalar width (53) and a float4 one
+    (1920), equal the plain version."""
+    if name == "through":
+        p = Pipeline("through")
+        p.output("out", [(p.input("in"), 1, 1)])
+        dag = p.build()
+    elif name in algorithms.ALGORITHMS:
+        dag = algorithms.ALGORITHMS[name]()
+    else:
+        dag = _generic(name == "tgeneric")
+    depths = dag.temporal_depths()
+    rng = np.random.RandomState(21)
+    for h, w in [(37, 53), (45, 1920)]:
+        x = torch.from_numpy(_frames(5, 4, h, w)).to(cuda_device)
+        prog = sp.build_program(dag, h, w, r, frames=4)
+        assert int(prog.table[sp.H_VEC]) == (w % 4 == 0)
+        states = [torch.from_numpy(rng.rand(depths[p] - 1, h, w).astype(
+            np.float32)).to(cuda_device) for p in prog.states]
+        got = sp.stencil_pipeline(prog, [x], states)
+        torch.cuda.synchronize()
+        inputs = {"in": x}
+        exp, _ = sp.video_pipeline_plain(dag, {
+            **inputs, **sp.tap_feeds(dag, inputs,
+                                     dict(zip(prog.states, states)), 4)})
+        assert torch.equal(got, exp), (name, (h, w), r)
 
 
 @pytest.mark.cuda

@@ -52,6 +52,31 @@ def _tinternal():
     p.output("out", [(d, 1, 1)])
     return p.build()
 
+
+def generic_pipeline(temporal: bool = False):
+    """Windows no registered pipeline uses, so every window stage takes
+    the kernel's generic body: a 7x2 conv, a 5x4 nms and, temporal, a
+    (2, 3, 1) stmean joined to them by a product."""
+    taps = np.random.RandomState(9).randn(7, 2).astype(np.float32)
+    p = Pipeline("tgeneric" if temporal else "generic")
+    x = p.input("in")
+    a = p.stage("a", [(x, 7, 2)], algorithms.conv_fn(taps))
+    n = p.stage("n", [(a, 5, 4)], algorithms.nms_fn)
+    if temporal:
+        m = p.stage("m", [(x, 2, 3, 1)], algorithms.stmean_fn(2, 3, 1))
+        n = p.stage("j", [(n, 1, 1), (m, 1, 1)], algorithms.prod_fn)
+    p.output("out", [(n, 1, 1)])
+    return p.build()
+
+
+def _dag(name):
+    if name == "tinternal":
+        return _tinternal()
+    if name in ("generic", "tgeneric"):
+        return generic_pipeline(name == "tgeneric")
+    return (algorithms.ALGORITHMS.get(name)
+            or algorithms.VIDEO_ALGORITHMS[name])()
+
 _SHIM = r"""
 #include <algorithm>
 #include <cmath>
@@ -71,7 +96,10 @@ static float* g_smem;
 #define __forceinline__ inline
 struct alignas(8) float2 { float x, y; };
 struct alignas(16) float4 { float x, y, z, w; };
-#define __launch_bounds__(n)
+static float4 make_float4(float x, float y, float z, float w) {
+  return float4{x, y, z, w};
+}
+#define __launch_bounds__(...)
 #define __grid_constant__
 #define __restrict__
 #define __syncthreads()
@@ -84,6 +112,10 @@ static float __int_as_float(int i) { float f; memcpy(&f, &i, 4); return f; }
 static void cp_async4(float* dst, const float* src, bool ok) {
   *dst = ok ? *src : 0.f;
 }
+static void cp_async16(float* dst, const float* src, bool ok) {
+  for (int i = 0; i < 4; ++i) dst[i] = ok ? src[i] : 0.f;
+}
+static void cp_async_wait_all() {}
 static void cp_async_commit() {}
 static void cp_async_wait(int) {}
 """
@@ -102,7 +134,13 @@ extern "C" void host_launch(const int* table, const float* wts,
     F.p[i] = static_cast<const float*>(feeds[i]);
   Outs O;
   for (int i = 0; i < kMaxOuts; ++i) O.p[i] = static_cast<float*>(outs[i]);
-  std::vector<float> sm(P.hdr[H_SMEM_BYTES] / 4 + 1);
+  uintptr_t bits = 0;
+  for (int i = 0; i < kMaxFeeds; ++i)
+    bits |= reinterpret_cast<uintptr_t>(feeds[i]);
+  for (int i = 0; i < kMaxOuts; ++i)
+    bits |= reinterpret_cast<uintptr_t>(outs[i]);
+  if (bits & 15) P.hdr[H_VEC] = 0;
+  std::vector<float> sm(P.hdr[H_SMEM_BYTES] / 4 + 4);
   g_smem = sm.data();
   for (int z = 0; z < gz; ++z)
     for (int y = 0; y < gy; ++y)
@@ -197,10 +235,10 @@ def host_kernel(tmp_path_factory):
     (16, 64),                       # many strips and bands
     (7, 1),                         # strips narrower than the halo
 ])
-@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("name", NAMES + ["generic"])
 def test_host_compiled_kernel_matches_plain(host_kernel, name, strip_w,
                                             target_ctas):
-    dag = algorithms.ALGORITHMS[name]()
+    dag = _dag(name)
     rng = np.random.RandomState(11)
     for h, w in [(37, 53), (5, 48), (70, 40)]:
         plan = compile_pipeline(dag, w)
@@ -220,14 +258,13 @@ def test_host_compiled_kernel_matches_plain(host_kernel, name, strip_w,
     (sp.STRIP_W, sp.TARGET_CTAS),   # the executors' geometry
     (7, 1),                         # strips narrower than the halo
 ])
-@pytest.mark.parametrize("name", VIDEO + ["tinternal"])
+@pytest.mark.parametrize("name", VIDEO + ["tinternal", "tgeneric"])
 def test_host_compiled_temporal_kernel_matches_plain(host_kernel, name,
                                                      strip_w, target_ctas):
     """History taps read from the launch's own earlier frames and from
     random frame-ring states, and frame outputs, equal the plain
     version bitwise."""
-    dag = _tinternal() if name == "tinternal" \
-        else algorithms.VIDEO_ALGORITHMS[name]()
+    dag = _dag(name)
     depths = dag.temporal_depths()
     rng = np.random.RandomState(5)
     batches = (1,) if name == "tinternal" else (1, 4)
@@ -271,7 +308,7 @@ def _n_steps(prog, y):
     (16, 64),                       # many strips and bands
     (7, 1),                         # strips narrower than the halo
 ])
-@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("name", NAMES + ["generic"])
 def test_host_compiled_prefetch_kernel_matches_plain(host_kernel, name,
                                                      strip_w, target_ctas,
                                                      depth):
@@ -279,7 +316,7 @@ def test_host_compiled_prefetch_kernel_matches_plain(host_kernel, name,
     (slot t % depth, refilled with step t + depth) equals the plain
     version bitwise, bands with fewer row groups than the depth
     included."""
-    dag = algorithms.ALGORITHMS[name]()
+    dag = _dag(name)
     rng = np.random.RandomState(12)
     short = False
     for h, w in [(37, 53), (5, 48), (70, 40)]:
@@ -308,15 +345,14 @@ def test_host_compiled_prefetch_kernel_matches_plain(host_kernel, name,
     (sp.STRIP_W, sp.TARGET_CTAS),   # the executors' geometry
     (7, 1),                         # strips narrower than the halo
 ])
-@pytest.mark.parametrize("name", VIDEO + ["tinternal"])
+@pytest.mark.parametrize("name", VIDEO + ["tinternal", "tgeneric"])
 def test_host_compiled_prefetch_temporal_kernel_matches_plain(
         host_kernel, name, strip_w, target_ctas, depth):
     """Prefetch depth 2 and 4 on the temporal table: inputs and every
     history tap (launch frames and random frame-ring states) staged
     through their own rings; output and frame outputs equal the plain
     version bitwise."""
-    dag = _tinternal() if name == "tinternal" \
-        else algorithms.VIDEO_ALGORITHMS[name]()
+    dag = _dag(name)
     depths = dag.temporal_depths()
     rng = np.random.RandomState(6)
     batches = (1,) if name == "tinternal" else (1, 4)
@@ -349,6 +385,114 @@ def test_host_compiled_prefetch_temporal_kernel_matches_plain(
                         assert np.array_equal(got_frames[p],
                                               frames[p].numpy()), where
                 assert np.array_equal(got, out.numpy()), where
+
+
+def test_stage_bodies_cover_the_registered_pipelines():
+    """Every stage of the 11 registered pipelines runs an unrolled body
+    (feed, pointwise or one of the unrolled window shapes); the window
+    stages of the DSL pipelines with unusual shapes take the generic
+    one."""
+    def kinds(dag):
+        prog = sp.build_program(dag, 16, 24, 8)
+        rows = prog.table[sp.HDR:].reshape(-1, sp.STAGE_INTS)
+        return [sp.KINDS[r[sp.S_KIND]]
+                for r in rows[:int(prog.table[sp.H_NSTAGES])]]
+    for name in NAMES + VIDEO:
+        assert "generic" not in kinds(_dag(name)), name
+    assert kinds(_dag("canny-m")) == [
+        "feed", "conv1x5", "conv5x1", "conv3x1", "conv1x3", "point",
+        "nms3x3", "nms3x3", "point"]
+    assert set(kinds(_dag("tunsharp-t"))) == {"feed", "stmean333", "point"}
+    assert kinds(_dag("generic")) == ["feed", "generic", "generic"]
+    assert kinds(_dag("tgeneric")).count("generic") == 3
+
+
+def test_barriers_follow_dag_levels():
+    """Stages sort by DAG level and only a level's last stage ends in a
+    barrier: canny-m's two gradients share one."""
+    prog = sp.build_program(_dag("canny-m"), 16, 24, 8)
+    rows = prog.table[sp.HDR:].reshape(-1, sp.STAGE_INTS)
+    n = int(prog.table[sp.H_NSTAGES])
+    assert [int(r[sp.S_SYNC]) for r in rows[:n]] == [1, 1, 1, 0, 1, 1, 1,
+                                                     1, 1]
+    prog = sp.build_program(_dag("tbackground-t"), 16, 24, 8)
+    rows = prog.table[sp.HDR:].reshape(-1, sp.STAGE_INTS)
+    # seven taps and the input are level 0: one barrier for all eight
+    assert [int(r[sp.S_SYNC]) for r in rows[:10]] == [0] * 7 + [1, 1, 1]
+
+
+# frames narrower than a 4-column vector allows (53, 130, 257: scalar
+# loads and stores) and 1920 (float4); 70 rows make two bands at 1920
+WIDTHS = [(12, 1920), (70, 1920), (9, 130), (7, 257), (11, 53)]
+
+
+@pytest.mark.parametrize("name", NAMES + ["generic"])
+def test_host_compiled_kernel_vector_and_scalar_widths(host_kernel, name):
+    """The executors' geometry (strip 0 and inner strips, band 0 and an
+    inner band) over vector and scalar widths at R = 1, 3, 8 equals the
+    plain version bitwise; 1920 takes the float4 path."""
+    dag = _dag(name)
+    rng = np.random.RandomState(13)
+    for h, w in WIDTHS:
+        plan = compile_pipeline(dag, w)
+        for r in (1, 3, 8):
+            x = rng.rand(2, h, w).astype(np.float32)
+            prog = sp.build_program(dag, h, w, r, frames=2,
+                                    alloc_buffers=plan.alloc.buffers,
+                                    target_ctas=10**6)
+            assert int(prog.table[sp.H_VEC]) == (w % 4 == 0)
+            assert prog.grid_x == -(-w // min(sp.STRIP_W, w))
+            exp = sp.stencil_pipeline_plain(dag, {"in": torch.from_numpy(x)})
+            got = host_kernel(prog, x)
+            assert np.array_equal(got, exp.numpy()), (name, (h, w), r)
+
+
+def test_host_compiled_kernel_passes_an_input_through(host_kernel):
+    """An output wired straight to the input: the feed stage writes the
+    output rows itself (level 0, before the first barrier), at a scalar
+    and a vector width."""
+    p = Pipeline("through")
+    p.output("out", [(p.input("in"), 1, 1)])
+    dag = p.build()
+    rng = np.random.RandomState(15)
+    for h, w in [(37, 53), (20, 1920)]:
+        for r in (1, 8):
+            x = rng.rand(2, h, w).astype(np.float32)
+            prog = sp.build_program(dag, h, w, r, frames=2,
+                                    target_ctas=10**6)
+            assert int(prog.table[sp.H_OSYNC]) == 1
+            assert np.array_equal(host_kernel(prog, x), x), ((h, w), r)
+
+
+@pytest.mark.parametrize("name", VIDEO + ["tinternal", "tgeneric"])
+def test_host_compiled_temporal_kernel_vector_widths(host_kernel, name):
+    """History taps and frame outputs at 1920 (float4 feeds) and 130
+    (scalar) over chunks of 4 (1 with a frame output) equal the plain
+    version bitwise."""
+    dag = _dag(name)
+    depths = dag.temporal_depths()
+    rng = np.random.RandomState(14)
+    b = 1 if name == "tinternal" else 4
+    for h, w in [(12, 1920), (9, 130)]:
+        plan = compile_pipeline(dag, w)
+        for r in (3, 8):
+            x = rng.rand(b, h, w).astype(np.float32)
+            states = [rng.rand(depths[p] - 1, h, w).astype(np.float32)
+                      for p in sorted(depths, key=dag.topo_order.index)]
+            prog = sp.build_program(dag, h, w, r, frames=b,
+                                    alloc_buffers=plan.alloc.buffers)
+            assert int(prog.table[sp.H_VEC]) == (w % 4 == 0)
+            inputs = {"in": torch.from_numpy(x)}
+            ring = {p: torch.from_numpy(a)
+                    for p, a in zip(prog.states, states)}
+            out, frames = sp.video_pipeline_plain(
+                dag, {**inputs, **sp.tap_feeds(dag, inputs, ring, b)})
+            got = host_kernel(prog, x, states)
+            if prog.frame_outs:
+                got, got_frames = got
+                for p in prog.frame_outs:
+                    assert np.array_equal(got_frames[p], frames[p].numpy())
+            assert np.array_equal(got, out.numpy()), (name, (h, w), r)
 
 
 @pytest.fixture(scope="module")

@@ -267,8 +267,10 @@ def test_smem_bill_is_rings_plus_staging_per_feed(name, depth, r):
     prog = sp.build_program(dag, 1080, 1920, r,
                             alloc_buffers=plan.alloc.buffers,
                             prefetch_depth=depth)
+    # the depth-1 program at the strip the staging left room for
     rings = sp.build_program(dag, 1080, 1920, r,
-                             alloc_buffers=plan.alloc.buffers).smem_bytes
+                             alloc_buffers=plan.alloc.buffers,
+                             strip_w=prog.strip_w).smem_bytes
     ncols = int(prog.table[sp.H_NCOLS])
     n_feeds = len(dag.input_stages()) + len(sp.temporal_taps(dag))
     staging = n_feeds * depth * r * ncols * 4 if depth > 1 else 0

@@ -198,11 +198,25 @@ def test_smem_rings_and_launch_geometry():
     prog = sp.build_program(dag, 1080, 1920, 8, frames=4,
                             alloc_buffers=plan.alloc.buffers)
     up, left = dag.cumulative_extent()
-    assert prog.smem_bytes == sum(rings.values()) * (sp.STRIP_W + left) * 4
-    assert prog.grid_x == 1920 // sp.STRIP_W
+    # a CTA computes its strip and the left halo rounded up to 4 (1920
+    # takes 16-byte vectors), the whole rounded up to a warp, behind pad
+    # zero columns (the widest window's sw - 1, rounded up to 4); beside
+    # the rings sit the R output rows and two ring-row tables
+    ncols = -(-(sp.STRIP_W + -(-left // 4) * 4) // 32) * 32
+    pad = -(-(max(e.sw for e in dag.edges) - 1) // 4) * 4
+    assert int(prog.table[sp.H_NCOLS]) == ncols
+    assert int(prog.table[sp.H_PAD]) == pad
+    assert int(prog.table[sp.H_THREADS]) == min(ncols, sp.THREADS)
+    assert prog.smem_bytes == (sum(rings.values()) * (pad + ncols)
+                               + 8 * ncols + 2 * sp.MAX_RINGS) * 4
+    assert prog.grid_x == -(-1920 // sp.STRIP_W)
     assert prog.band_h >= 4 * up
     assert prog.grid_y * prog.band_h >= 1080
-    assert prog.grid_x * prog.grid_y * 4 >= sp.TARGET_CTAS
+    # TARGET_CTAS asks for more bands than four top halos (40 rows)
+    # allow; an inner band and its halo then fill whole row groups of 8
+    assert sp.TARGET_CTAS > prog.grid_x * (1080 // (4 * up)) * 4
+    assert (prog.band_h, prog.grid_y) == (46, 24)
+    assert (prog.band_h + up) % 8 == 0
 
 
 def test_build_program_rejects_what_the_kernel_cannot_run():
@@ -215,6 +229,18 @@ def test_build_program_rejects_what_the_kernel_cannot_run():
     p = Pipeline("tall")
     x = p.input("in")
     y = p.stage("y", [(x, 1000, 1)], algorithms.conv_fn(np.ones((1000, 1))))
+    p.output("out", [(y, 1, 1)])
+    with pytest.raises(ValueError, match="shared memory"):
+        sp.build_program(p.build(), 8, 128, 8, strip_w=128)
+    # the default strip narrows until the rings fit: 32 columns here
+    p = Pipeline("narrow")
+    x = p.input("in")
+    y = p.stage("y", [(x, 1000, 1)], algorithms.identity_fn)
+    p.output("out", [(y, 1, 1)])
+    assert sp.build_program(p.build(), 8, 128, 8).strip_w == 32
+    p = Pipeline("taller")
+    x = p.input("in")
+    y = p.stage("y", [(x, 4000, 1)], algorithms.conv_fn(np.ones((4000, 1))))
     p.output("out", [(y, 1, 1)])
     with pytest.raises(ValueError, match="shared memory"):
         sp.build_program(p.build(), 8, 128, 8)
