@@ -37,8 +37,8 @@ inputs. Each phase prints one JSON line:
   7. tuned   — the autotuned rung: VideoEngine(autotune=True) on the 4
                video pipelines and FrameEngine(autotune=True) on
                unsharp-m at 1080p, against the plain version;
-  8. depth   — prefetch depth 2 and 4 (staging rings filled by
-               asynchronous copies, poisoned with NaN first): the 7
+  8. depth   — prefetch depth 2 and 4 (feeds copied ahead into their
+               grown line rings, the grown slots poisoned with NaN): the 7
                spatial pipelines at 1080p B=4 and three odd shapes, and
                canny-m tiled, against depth 1 and the plain version; the
                4 video pipelines in chunks of 4 and an internal temporal
@@ -440,7 +440,7 @@ def depth_phase(dev, mem_rate: float, flop_rate: float, sms: int) -> dict:
             fail(f"{where}: differs by {ulp} ULP (abs {err})")
         max_err, max_ulp = max(max_err, err), max(max_ulp, ulp)
 
-    # spatial: depth d against depth 1 and plain, staging poisoned
+    # spatial: depth d against depth 1 and plain, grown slots poisoned
     for name in names:
         dag = algorithms.ALGORITHMS[name]()
         for h, w in DEPTH_SHAPES:
@@ -459,7 +459,7 @@ def depth_phase(dev, mem_rate: float, flop_rate: float, sms: int) -> dict:
                     prog = sp.build_program(dag, h, w, SERVE_R, frames=batch,
                                             alloc_buffers=bufs,
                                             prefetch_depth=d,
-                                            poison_staging=True)
+                                            poison_prefetch=True)
                     before = sp.stencil_pipeline.prefetch_launches
                     got = sp.stencil_pipeline(prog, [x])
                     torch.cuda.synchronize()
@@ -576,7 +576,7 @@ def depth_phase(dev, mem_rate: float, flop_rate: float, sms: int) -> dict:
             row[f"d{d}"] = {
                 "ms": cuda_ms(call, iters=20),
                 "device_ms": device_ms(call, 10)[0],
-                "staging_bytes": prog.staging_bytes,
+                "prefetch_bytes": prog.prefetch_bytes,
                 **k1_resources(prog, SERVE_B, sms)}
         inputs = {"in": x}
         row["plain_ms"] = cuda_ms(lambda: sp.video_pipeline_plain(dag, {
@@ -598,19 +598,26 @@ def depth_phase(dev, mem_rate: float, flop_rate: float, sms: int) -> dict:
                   f"{SERVE_H}x{SERVE_W} R={SERVE_R}",
          per_pipeline=per)
     spatial = [per[n] for n in names]
+    video = [per[n] for n in vnames]
     return {"launches": launches, "max_abs_err": max_err,
             "max_ulp": max_ulp,
             "ms": sum(p["d2"]["ms"] for p in spatial),
             "device_ms": sum(p["d2"]["device_ms"] for p in spatial),
             "ms_depth4": sum(p["d4"]["ms"] for p in spatial),
             "device_ms_depth1": sum(p["d1"]["device_ms"] for p in spatial),
+            "video_device_ms": sum(p["d2"]["device_ms"] for p in video),
+            "video_device_ms_depth1": sum(p["d1"]["device_ms"]
+                                          for p in video),
+            "video_bound_ms": sum(p["bound_ms"] for p in video),
             "ptxas": _registers("stencil_pipeline",
                                 K1_INSTANCES["spatial_prefetch"]),
             "ptxas_temporal": _registers(
                 "stencil_pipeline", K1_INSTANCES["temporal_prefetch"]),
-            "smem_bytes": {n: per[n]["d2"]["smem_bytes"] for n in names},
+            "smem_bytes": {n: per[n]["d2"]["smem_bytes"] for n in per},
             "blocks_per_sm": {n: per[n]["d2"]["blocks_per_sm"]
-                              for n in names},
+                              for n in per},
+            "blocks_per_sm_depth1": {n: per[n]["d1"]["blocks_per_sm"]
+                                     for n in per},
             "plain_ms": sum(p["plain_ms"] for p in spatial),
             "bound_ms": sum(p["bound_ms"] for p in spatial),
             "bound_by": "bytes" if all(p["bound_by"] == "bytes"
@@ -1070,15 +1077,19 @@ def main() -> None:
         "replaces_part": "prefetch_depth >= 2 rings (:319-421)",
         "launches": k1d["launches"], "max_abs_err": k1d["max_abs_err"],
         "max_ulp": k1d["max_ulp"], "ms": k1d["ms"],
-        **{k: k1d[k] for k in ("device_ms", "device_ms_depth1", "ptxas",
-                               "ptxas_temporal", "smem_bytes",
-                               "blocks_per_sm")},
+        **{k: k1d[k] for k in ("device_ms", "device_ms_depth1",
+                               "video_device_ms", "video_device_ms_depth1",
+                               "video_bound_ms", "ptxas", "ptxas_temporal",
+                               "smem_bytes", "blocks_per_sm",
+                               "blocks_per_sm_depth1")},
         "ms_depth4": k1d["ms_depth4"], "plain_ms": k1d["plain_ms"],
         "bound_ms": k1d["bound_ms"], "bound_by": k1d["bound_by"],
         "library_ms": None,
         "timed_on": f"one B={SERVE_B} {SERVE_H}x{SERVE_W} R={SERVE_R} "
                     f"batch of each of the {len(names)} pipelines at "
-                    f"depth 2 (ms_depth4: depth 4)",
+                    f"depth 2 (ms_depth4: depth 4; video_*: one "
+                    f"chunk-{SERVE_B} launch of each of the 4 video "
+                    f"pipelines)",
     }, {
         "name": "conv2d", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/conv2d_stencil.cu",

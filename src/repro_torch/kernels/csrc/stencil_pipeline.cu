@@ -99,19 +99,40 @@
 // Prefetch depth d >= 2 (the kPrefetch instantiations). The TPU kernel
 // stages every feed through a (d, R, W) VMEM ring filled by
 // pltpu.make_async_copy, so step t computes on slot t % d while steps
-// t+1..t+d-1 load. Here each feed stage (an input, or a history tap) owns
-// a staging ring of d slots of R x ncols floats in dynamic shared memory,
-// after the line rings. A CTA's row groups are its steps t = 0, 1, ...; a
-// prologue issues the copies of steps 0..d-1, step t waits for its own
-// slot, the feed stages copy the slot into their line ring, and after the
-// row group's last barrier the kernel refills that slot with step t + d.
-// The copies are 4-byte cp.async (src-size 0 writes the zero of the frame
-// edge), so any width works. One commit group per step (an empty one past
-// the band's last step) and cp.async.wait_group d-1 track completion. A
-// thread copies exactly the slot elements it later reads (its columns,
-// every row), so its own wait makes them visible; no block barrier is
-// needed for the copies. Depths above 8 stay correct but keep at most 8
-// steps in flight, since wait_group takes an immediate. The depth-1
+// t+1..t+d-1 load. Here there is no staging ring: each feed stage (an
+// input, or a history tap) copies straight into its own line ring, which
+// build_program grows to max(d * R + sh - 1, the plan's lines) rows (sh:
+// the tallest window that reads it); the other rings keep their depth-1
+// rows. A CTA's row groups are its steps t = 0, 1, ...; the copies of
+// step u land at the slots of rows rlo + u * R.. : the row table's slot
+// plus (u - t) * R, one compare and subtract, since (d - 1) * R < rows.
+// The clock, one commit group per step (an empty one past the band's
+// last step), so cp.async.wait_group counts steps:
+//   * the prologue zero-fills the rings, synchronises (the copies land
+//     on zeroed rows) and issues steps 0..d-1;
+//   * the copies of a step must land and then pass a barrier before any
+//     stage reads them, since the column-owning threads that read them
+//     are not the copying ones: each thread waits for its copies of step
+//     t at the top of row group t (wait_group d - 1), and the feeds'
+//     barrier shows them to all, as at depth 1. That barrier also keeps
+//     a fast thread of row group t + 1 from writing the output block
+//     while a slow one still stores row group t's;
+//   * after the row group's last barrier no stage reads step t's rows
+//     any more, and the kernel refills with step t + d, from the next
+//     row group's table; its slots alias rows at most row0 + R - sh,
+//     which later steps never read.
+// The copies use the (row, 4-column) item walk of the depth-1 feed, 16
+// bytes each where H_VEC holds, else 4 bytes (src-size 0 writes the zero
+// of the frame edge). A feed that is also the final stage moves its R
+// rows from the ring to the output block, each thread the elements it
+// copied. The zero border holds as at depth 1: the prologue writes slots
+// 0..d*R-1 only, and a grown ring has at least d * R + sh - 1 rows, so
+// the sh - 1 slots that stand for the rows above rlo stay zero until
+// step 0 has read them. With H_POISON the kernel first fills with NaN
+// every slot a copy writes before anything reads it (S_LEAD rows of each
+// feed ring, not the zero tail), so a read that overtakes its copy shows.
+// Depths above 9 stay correct but keep at most 8 steps in flight, since
+// wait_group takes an immediate (at most 7 here). The depth-1
 // instantiations compile to the kernel without any of this.
 
 #include <cuda_runtime.h>
@@ -149,26 +170,27 @@ enum Kind {
 // header fields
 // H_NCOLS: columns a CTA computes (a multiple of 32); H_PAD: zero columns
 // left of them in every ring row, H_PITCH = H_PAD + H_NCOLS floats a
-// ring row; H_OSTAGE, H_SLOTS, H_STAGING: offsets (floats) of the output
-// block, the ring-row tables and the staging rings in shared memory;
-// H_NRINGS: rings; H_VEC: 16-byte vector I/O; H_THREADS: threads per
-// CTA; H_OSYNC: a barrier after the output store (a level-0 final stage).
-// H_DEPTH is the prefetch depth, H_POISON fills staging with NaN first.
+// ring row; H_OSTAGE, H_SLOTS: offsets (floats) of the output block and
+// the ring-row tables in shared memory; H_NRINGS: rings; H_VEC: 16-byte
+// vector I/O; H_THREADS: threads per CTA; H_OSYNC: a barrier after the
+// output store (a level-0 final stage). H_DEPTH is the prefetch depth,
+// H_POISON fills the feed rings' grown slots with NaN first.
 enum Hdr {
   H_NSTAGES = 0, H_R, H_H, H_W, H_STRIP_W, H_HALO_LEFT, H_NCOLS, H_BAND_H,
-  H_HALO_UP, H_SMEM_BYTES, H_TEMPORAL, H_DEPTH, H_STAGING, H_POISON,
-  H_PAD, H_PITCH, H_OSTAGE, H_SLOTS, H_NRINGS, H_VEC, H_THREADS, H_OSYNC
+  H_HALO_UP, H_SMEM_BYTES, H_TEMPORAL, H_DEPTH, H_POISON, H_PAD, H_PITCH,
+  H_OSTAGE, H_SLOTS, H_NRINGS, H_VEC, H_THREADS, H_OSYNC
 };
 
 // stage fields; S_SRC, S_ST, S_SH and S_SW each hold up to 3 operands.
 // S_FEED is an input's feed (or, for a tap, its producer's input feed,
 // -1 for an internal producer); S_STATE and S_TAPJ locate a tap's
 // frame-ring state and its frames back; S_FOUT is a frame output or -1;
-// S_STAGE is a feed stage's staging ring at depth >= 2, else -1; S_KIND
-// the body that runs the stage; S_SYNC 1 where a barrier follows.
+// S_LEAD, at depth >= 2, the rows of a feed's ring that copies fill
+// before anything reads them (all but the zero tail above rlo), else 0;
+// S_KIND the body that runs the stage; S_SYNC 1 where a barrier follows.
 enum Field {
   S_OP = 0, S_RING, S_FINAL, S_FEED, S_NSRC, S_WOFF, S_FOUT, S_STATE,
-  S_TAPJ, S_SRC = 9, S_ST = 12, S_SH = 15, S_SW = 18, S_STAGE = 21,
+  S_TAPJ, S_SRC = 9, S_ST = 12, S_SH = 15, S_SW = 18, S_LEAD = 21,
   S_KIND = 22, S_SYNC = 23
 };
 
@@ -360,35 +382,20 @@ __device__ __forceinline__ const float* feed_frame(const Ctx& c,
                 : c.F->p[S[S_STATE]] + (j - b - 1) * c.hw;
 }
 
-// A feed stage: rows row0 .. row0 + R - 1 of its frame into its ring
-// (and the output block, if the output reads it), zero outside the frame.
-// At depth 1 the rows arrive by asynchronous copies straight into the
-// ring, so every feed of the level has its loads in flight at once; the
-// level's barrier waits for them. At depth >= 2 they come from the
-// feed's staging slot.
-template <bool kTemporal, bool kPrefetch>
-__device__ __forceinline__ void stage_feed(const Ctx& c, const int* S,
-                                           const float* staged) {
-  if (!kTemporal && S[S_OP] == OP_TAP) return;
-  if constexpr (kPrefetch) {
-    for (int lc = c.tid; lc < c.ncols; lc += c.nt) {
-      Sink k = sink<kTemporal>(c, S, lc);
-      for (int i = 0; i < c.R; ++i) k.put(c, i, staged[i * c.ncols + lc]);
-    }
-    return;
-  }
-  const int ring = S[S_RING];
-  float* rb = ring >= 0 ? c.sm + c.P->ring[ring][0] + c.pad : nullptr;
-  const int rows = ring >= 0 ? c.P->ring[ring][1] : 1;
-  const int s0 = ring >= 0 ? slot_of_row(c, ring, 0) : 0;
-  float* ob = S[S_FINAL] ? c.sm + c.P->hdr[H_OSTAGE] : nullptr;
-  const float* src = feed_frame(c, S);
+// Rows r0 .. r0 + R - 1 of a feed's frame src, zero outside the frame,
+// by asynchronous copies into its ring from slot s0 on (rb: the ring at
+// the CTA's first column, or null) and into the output block (ob, or
+// null). Where H_VEC holds, threads take (row, 4-column) items of 16
+// bytes; else each thread takes its columns, every row, 4 bytes a copy.
+__device__ __forceinline__ void copy_rows(const Ctx& c, const float* src,
+                                          int r0, float* rb, int rows,
+                                          int s0, float* ob) {
   if (c.vec) {
     // float4 items; the strip, its halo and w are multiples of 4, so an
     // item lies wholly inside or outside the frame
     int i = c.qi0, q = c.qq0;
     while (i < c.R) {
-      const int row = c.row0 + i, col = c.cbase + 4 * q;
+      const int row = r0 + i, col = c.cbase + 4 * q;
       const bool ok = row < c.h && col >= 0 && col < c.w;
       const float* px = ok ? src + static_cast<size_t>(row) * c.w + col
                            : src;
@@ -412,7 +419,7 @@ __device__ __forceinline__ void stage_feed(const Ctx& c, const int* S,
     const bool inside = col >= 0 && col < c.w;
     int s = s0;
     for (int i = 0; i < c.R; ++i) {
-      const int row = c.row0 + i;
+      const int row = r0 + i;
       const bool ok = inside && row < c.h;
       const float* px = ok ? src + static_cast<size_t>(row) * c.w + col
                            : src;
@@ -423,6 +430,58 @@ __device__ __forceinline__ void stage_feed(const Ctx& c, const int* S,
       if (ob) cp_async4(ob + i * c.ncols + lc, px, ok);
     }
   }
+}
+
+// The R rows of a ring from slot s0 on into the output block, by the
+// walk of copy_rows, so each thread moves the elements it copied.
+__device__ __forceinline__ void move_rows(const Ctx& c, const float* rb,
+                                          int rows, int s0, float* ob) {
+  if (c.vec) {
+    int i = c.qi0, q = c.qq0;
+    while (i < c.R) {
+      int s = s0 + i;
+      if (s >= rows) s -= rows;
+      *reinterpret_cast<float4*>(ob + i * c.ncols + 4 * q) =
+          *reinterpret_cast<const float4*>(rb + s * c.pitch + 4 * q);
+      i += c.qdi;
+      q += c.qdq;
+      if (q >= c.nq) {
+        q -= c.nq;
+        ++i;
+      }
+    }
+    return;
+  }
+  for (int lc = c.tid; lc < c.ncols; lc += c.nt) {
+    int s = s0;
+    for (int i = 0; i < c.R; ++i) {
+      ob[i * c.ncols + lc] = rb[s * c.pitch + lc];
+      s = s + 1 == rows ? 0 : s + 1;
+    }
+  }
+}
+
+// A feed stage: rows row0 .. row0 + R - 1 of its frame into its ring
+// (and the output block, if the output reads it), zero outside the frame.
+// At depth 1 the rows arrive by asynchronous copies straight into the
+// ring, so every feed of the level has its loads in flight at once; the
+// level's barrier waits for them. At depth >= 2 they were copied d - 1
+// row groups ahead (the kernel's issue), so only a final feed has work:
+// the move from its ring to the output block.
+template <bool kTemporal, bool kPrefetch>
+__device__ __forceinline__ void stage_feed(const Ctx& c, const int* S) {
+  if (!kTemporal && S[S_OP] == OP_TAP) return;
+  if (kPrefetch && !S[S_FINAL]) return;
+  const int ring = S[S_RING];
+  float* rb = ring >= 0 ? c.sm + c.P->ring[ring][0] + c.pad : nullptr;
+  const int rows = ring >= 0 ? c.P->ring[ring][1] : 1;
+  const int s0 = ring >= 0 ? slot_of_row(c, ring, 0) : 0;
+  float* ob = S[S_FINAL] ? c.sm + c.P->hdr[H_OSTAGE] : nullptr;
+  if constexpr (kPrefetch) {
+    move_rows(c, rb, rows, s0, ob);   // every feed has a ring at d >= 2
+    return;
+  }
+  copy_rows(c, feed_frame(c, S), c.row0, rb, rows, s0, ob);
 }
 
 // ------------------------------------------------------------ pointwise
@@ -774,8 +833,9 @@ __device__ __forceinline__ void store_output(const Ctx& c) {
 // kTemporal: the instantiation that also runs history taps, the temporal
 // ops and frame outputs. Spatial programs launch the other one, whose code
 // is the spatial kernel's alone (the temporal cases compile to nothing).
-// kPrefetch: feeds arrive through staging rings (prefetch depth >= 2);
-// without it the feed stages read device memory inline.
+// kPrefetch: feeds are copied into their grown rings d - 1 row groups
+// ahead (prefetch depth d >= 2); without it the feed stages copy their
+// row group's rows at level 0 and wait for them.
 template <bool kTemporal, bool kPrefetch>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 stencil_pipeline_kernel(const __grid_constant__ Program P,
@@ -828,47 +888,43 @@ stencil_pipeline_kernel(const __grid_constant__ Program P,
     for (int i = c.tid; i < n_rings; i += c.nt) slots[i] = 0;
   }
 
-  // prefetch: slot u % depth of a feed's staging ring, and the copies of
-  // step u (none past the band's last step), committed as one group
+  // prefetch: the copies of step u (none past the band's last step) into
+  // the feed rings, row rlo + u * R at slot table[ring] + ahead * R, with
+  // the table of a row group u - ahead, committed as one group. Feeds are
+  // the level-0 stages, so they come first.
   const int depth = kPrefetch ? P.hdr[H_DEPTH] : 1;
-  const int items = c.R * c.ncols;
   const int n_steps = (c.y1 - c.rlo + c.R - 1) / c.R;
-  auto staging = [&](const int* S, int u) -> float* {
-    return smem + P.hdr[H_STAGING] + (S[S_STAGE] * depth + u % depth) * items;
-  };
-  auto issue = [&](int u) {
-    if (u < n_steps) {
-      const int r0 = c.rlo + u * c.R;
-      for (int s = 0; s < n_stages; ++s) {
-        const int* S = P.st[s];
-        if (S[S_STAGE] < 0) continue;
-        const float* src = feed_frame(c, S);
-        float* dst = staging(S, u);
-        for (int lc = c.tid; lc < c.ncols; lc += c.nt) {
-          const int col = c.cbase + lc;
-          const bool inside = col >= 0 && col < c.w;
-          for (int i = 0; i < c.R; ++i) {
-            const int row = r0 + i;
-            const bool ok = inside && row < c.h;
-            cp_async4(dst + i * c.ncols + lc,
-                      ok ? src + static_cast<size_t>(row) * c.w + col : src,
-                      ok);
-          }
-        }
-      }
+  auto issue = [&](int u, const int* table, int ahead) {
+    for (int s = 0; u < n_steps && s < n_stages; ++s) {
+      const int* S = P.st[s];
+      if (S[S_KIND] != K_FEED) break;
+      if (!kTemporal && S[S_OP] == OP_TAP) continue;
+      const int ring = S[S_RING], rows = P.ring[ring][1];
+      int s0 = table[ring] + ahead * c.R;
+      if (s0 >= rows) s0 -= rows;
+      copy_rows(c, feed_frame(c, S), c.rlo + u * c.R,
+                smem + P.ring[ring][0] + c.pad, rows, s0, nullptr);
     }
     cp_async_commit();
   };
   if constexpr (kPrefetch) {
+    // the copies land on zeroed rows and read the zeroed row table
+    __syncthreads();
     if (P.hdr[H_POISON]) {
-      // debug: a read of a slot before its copy lands gives NaN
-      for (int i = P.hdr[H_STAGING] + c.tid; i < P.hdr[H_SMEM_BYTES] / 4;
-           i += c.nt)
-        smem[i] = __int_as_float(0x7fc00000);
-      // another thread's copy may land on an element this one poisons
+      // debug: the slots copies fill before any read (not the zero tail,
+      // not the pad columns) hold NaN, so a read that overtakes its copy
+      // shows; another thread's copy may land on an element this one
+      // poisons, hence the barrier
+      for (int s = 0; s < n_stages && P.st[s][S_KIND] == K_FEED; ++s) {
+        const int n = P.st[s][S_LEAD] * c.ncols;
+        float* rb = smem + P.ring[P.st[s][S_RING]][0] + c.pad;
+        for (int i = c.tid; i < n; i += c.nt)
+          rb[i / c.ncols * c.pitch + i % c.ncols] =
+              __int_as_float(0x7fc00000);
+      }
       __syncthreads();
     }
-    for (int u = 0; u < depth; ++u) issue(u);
+    for (int u = 0; u < depth; ++u) issue(u, slots, u);   // table 0
   }
   __syncthreads();
 
@@ -881,15 +937,12 @@ stencil_pipeline_kernel(const __grid_constant__ Program P,
       const int s = cur[k] + c.R, rows = P.ring[k][1];
       slots[((c.t + 1) & 1) * kMaxRings + k] = s >= rows ? s - rows : s;
     }
-    // this thread's copies of step t have landed
+    // this thread's copies of step t land before the feeds' barrier
     if constexpr (kPrefetch) cp_async_wait(depth - 1);
     for (int s = 0; s < n_stages; ++s) {
       const int* S = P.st[s];
       switch (S[S_KIND]) {
-        case K_FEED:
-          stage_feed<kTemporal, kPrefetch>(
-              c, S, kPrefetch && S[S_STAGE] >= 0 ? staging(S, c.t) : nullptr);
-          break;
+        case K_FEED: stage_feed<kTemporal, kPrefetch>(c, S); break;
         case K_POINT: stage_point_op<kTemporal>(c, S); break;
         case K_CONV_1x5: stage_conv<kTemporal, 1, 5>(c, S); break;
         case K_CONV_5x1: stage_conv<kTemporal, 5, 1>(c, S); break;
@@ -919,8 +972,11 @@ stencil_pipeline_kernel(const __grid_constant__ Program P,
     }
     store_output(c);
     if (P.hdr[H_OSYNC]) __syncthreads();
-    // step t's slots are read: refill them with step t + depth
-    if constexpr (kPrefetch) issue(c.t + depth);
+    // no stage reads step t's rows any more: refill with step t + depth,
+    // from the next row group's table (this one's is rewritten at step
+    // t + 1, while a slower thread may still be here)
+    if constexpr (kPrefetch)
+      issue(c.t + depth, slots + ((c.t + 1) & 1) * kMaxRings, depth - 1);
   }
 }
 
@@ -979,7 +1035,7 @@ extern "C" const char* stencil_pipeline_error_string(int code) {
 }
 
 // CTAs of the kernel (the temporal instantiation when ``temporal``, the
-// staging one when ``prefetch``) that fit on one SM at ``threads``
+// prefetch one when ``prefetch``) that fit on one SM at ``threads``
 // threads and ``smem_bytes`` of dynamic shared memory each, written to
 // ``*blocks``; returns the cudaError_t.
 extern "C" int stencil_pipeline_blocks_per_sm(int smem_bytes, int temporal,

@@ -10,9 +10,9 @@ input (see the source note there). Temporal pipelines add history taps
 — pseudo-inputs with their own rings, read from the caller's frame-ring
 state or from earlier frames of the same launch — and frame outputs for
 internal temporal producers. At ``prefetch_depth`` d >= 2 every feed
-(input or history tap) is staged through a d-slot shared-memory ring
-that asynchronous copies fill d - 1 row groups ahead of compute; the
-pixels are the same as at depth 1, bit for bit.
+(input or history tap) is copied asynchronously straight into its line
+ring d - 1 row groups ahead of compute, the ring grown by (d - 1) * R
+rows to hold them; the pixels are the same as at depth 1, bit for bit.
 
 This module holds, beside the kernel:
 
@@ -68,12 +68,11 @@ HDR, MAX_STAGES, STAGE_INTS, MAX_RINGS = 24, 24, 24, 24
 MAX_WTS, MAX_FEEDS, MAX_OUTS, MAX_SRC = 256, 8, 4, 3
 TABLE_INTS = HDR + MAX_STAGES * STAGE_INTS + MAX_RINGS * 2
 (H_NSTAGES, H_R, H_H, H_W, H_STRIP_W, H_HALO_LEFT, H_NCOLS, H_BAND_H,
- H_HALO_UP, H_SMEM_BYTES, H_TEMPORAL, H_DEPTH, H_STAGING, H_POISON,
- H_PAD, H_PITCH, H_OSTAGE, H_SLOTS, H_NRINGS, H_VEC, H_THREADS,
- H_OSYNC) = range(22)
+ H_HALO_UP, H_SMEM_BYTES, H_TEMPORAL, H_DEPTH, H_POISON, H_PAD, H_PITCH,
+ H_OSTAGE, H_SLOTS, H_NRINGS, H_VEC, H_THREADS, H_OSYNC) = range(21)
 (S_OP, S_RING, S_FINAL, S_FEED, S_NSRC, S_WOFF, S_FOUT, S_STATE,
  S_TAPJ) = range(9)
-S_SRC, S_ST, S_SH, S_SW, S_STAGE, S_KIND, S_SYNC = 9, 12, 15, 18, 21, 22, 23
+S_SRC, S_ST, S_SH, S_SW, S_LEAD, S_KIND, S_SYNC = 9, 12, 15, 18, 21, 22, 23
 
 # stage bodies, in the order of ``enum Kind`` in csrc/stencil_pipeline.cu:
 # a feed (input or history tap), a pointwise op on 1x1 operands, and the
@@ -91,6 +90,10 @@ STRIP_W = 240          # output columns per CTA
 THREADS = 256          # threads per CTA at most (one per ring column)
 SMEM_LIMIT = 232_448   # shared memory one H100 block may reserve (227 KB)
 TARGET_CTAS = 1056     # CTAs a launch aims for
+# CTAs per SM: an H100 SM holds 228 KB of shared memory and reserves 1 KB
+# of it per CTA; registers cap CTAs of THREADS threads at 3 (THREADS and
+# MIN_BLOCKS are the kernel's kThreads and kMinBlocks, its launch bounds)
+SM_SMEM, SMEM_RESERVE, MIN_BLOCKS = 233_472, 1024, 3
 
 
 def stage_kind(op: str, srcs: Sequence[tuple[str, int, int, int]]) -> str:
@@ -117,7 +120,8 @@ def stage_kind(op: str, srcs: Sequence[tuple[str, int, int, int]]) -> str:
 
 
 def smem_rings(dag: PipelineDAG, alloc_buffers: Mapping | None,
-               rows_per_step: int) -> dict[str, int]:
+               rows_per_step: int, prefetch_depth: int = 1
+               ) -> dict[str, int]:
     """Shared-memory ring rows per producer for row-group execution.
 
     A consumer reading an (sh, sw) window needs its producer's last
@@ -125,32 +129,52 @@ def smem_rings(dag: PipelineDAG, alloc_buffers: Mapping | None,
     over its consumers, or the plan's physical line count when that is
     larger (the ring is the plan's line buffer). Unlike the TPU rings
     there is no rounding: a CUDA thread writes any slot, so a ring may
-    wrap mid-group.
+    wrap mid-group. At ``prefetch_depth`` d >= 2 an input's ring also
+    holds the d - 1 row groups copied ahead: max(d * R + sh - 1, the
+    plan's lines) rows (the max, not the sum: the ring needs d * R + sh
+    - 1 rows, and the plan's lines, where more, hold them), and an input
+    that only the output reads gets a ring of d * R rows to land in.
     """
     if rows_per_step < 1:
         raise ValueError(f"rows_per_step must be >= 1, got {rows_per_step}")
     rings: dict[str, int] = {}
     for p in dag.topo_order:
-        shs = [e.sh for e in dag.out_edges(p)
-               if not dag.stages[e.consumer].is_output]
-        if not shs:
+        read = any(not dag.stages[e.consumer].is_output
+                   for e in dag.out_edges(p))
+        feed = dag.stages[p].is_input and prefetch_depth > 1
+        if not read and not feed:
             continue
-        need = rows_per_step + max(shs) - 1
+        need = (prefetch_depth if feed else 1) * rows_per_step \
+            + _reach(dag, p) - 1
         if alloc_buffers and p in alloc_buffers:
             need = max(need, alloc_buffers[p].n_lines_phys)
         rings[p] = need
     return rings
 
 
-def smem_tap_rings(dag: PipelineDAG, rows_per_step: int
-                   ) -> dict[tuple[str, int], int]:
+def _reach(dag: PipelineDAG, p: str) -> int:
+    """The tallest window (sh) that a stage other than the output reads
+    from producer ``p``'s live ring; 1 when none does."""
+    return max((e.sh for e in dag.out_edges(p)
+                if not dag.stages[e.consumer].is_output), default=1)
+
+
+def tap_reach(dag: PipelineDAG) -> dict[tuple[str, int], int]:
+    """The tallest window (sh) that reads each temporal tap (producer, j
+    frames back): the edges from the producer with st > j."""
+    return {(p, j): max(e.sh for e in dag.out_edges(p) if e.st > j)
+            for (p, j) in temporal_taps(dag)}
+
+
+def smem_tap_rings(dag: PipelineDAG, rows_per_step: int,
+                   prefetch_depth: int = 1) -> dict[tuple[str, int], int]:
     """Shared-memory ring rows per temporal tap (producer, j frames
     back): one read slab, ``R + sh - 1`` rows over the edges from the
     producer with st > j (no plan to grow from: history frames stream
-    from device memory)."""
-    return {(p, j): rows_per_step - 1 + max(
-        e.sh for e in dag.out_edges(p) if e.st > j)
-        for (p, j) in temporal_taps(dag)}
+    from device memory), and at ``prefetch_depth`` d >= 2 the d - 1 row
+    groups copied ahead, ``d * R + sh - 1``."""
+    return {tap: prefetch_depth * rows_per_step + sh - 1
+            for tap, sh in tap_reach(dag).items()}
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -164,8 +188,8 @@ class StencilProgram:
     ``feeds`` are the input stages, ``states`` the temporal producers
     whose frame rings the launch reads, ``frame_outs`` the internal
     temporal producers whose frames it writes beside the output.
-    ``staging_bytes`` is the part of ``smem_bytes`` that the prefetch
-    staging rings take at ``prefetch_depth`` >= 2 (0 at depth 1).
+    ``prefetch_bytes`` is the part of ``smem_bytes`` that the feed rings'
+    grown rows take at ``prefetch_depth`` >= 2 (0 at depth 1).
     """
     dag: PipelineDAG
     h: int
@@ -182,7 +206,20 @@ class StencilProgram:
     grid_y: int
     smem_bytes: int
     prefetch_depth: int = 1
-    staging_bytes: int = 0
+    prefetch_bytes: int = 0
+
+
+def _resident(smem: int) -> int:
+    """CTAs per SM that ``smem`` bytes of shared memory each allow, at
+    most the MIN_BLOCKS that registers allow."""
+    return min(SM_SMEM // (smem + SMEM_RESERVE), MIN_BLOCKS)
+
+
+def _lead(rows: int, reach: int) -> int:
+    """Rows of a feed ring that copies fill before any read at depth >=
+    2: all but the reach - 1 slots standing for the rows above the band,
+    which stay zero until the first row group has read them."""
+    return rows - (reach - 1)
 
 
 def _band_height(h: int, strips: int, frames: int, halo_up: int,
@@ -221,7 +258,7 @@ def build_program(dag: PipelineDAG, h: int, w: int, rows_per_step: int,
                   target_ctas: int = TARGET_CTAS,
                   threads: int = THREADS,
                   prefetch_depth: int = 1,
-                  poison_staging: bool = False) -> StencilProgram:
+                  poison_prefetch: bool = False) -> StencilProgram:
     """Resolve ``dag`` into the kernel's stage table for (h, w) frames.
 
     Operand order is resolved here, once: each payload maps its in-edges
@@ -236,7 +273,9 @@ def build_program(dag: PipelineDAG, h: int, w: int, rows_per_step: int,
     CTA at most) set that geometry (the defaults are what the executors
     use; other values serve the geometry sweep). With no ``strip_w`` the
     strip is ``STRIP_W`` columns, halved until the shared memory fits
-    the block limit (deep staging rings need narrow strips).
+    the block limit and, at depth >= 2, until it allows as many CTAs per
+    SM as the depth-1 bill at the first strip does (so a deep program
+    with grown rings keeps depth 1's occupancy).
 
     A CTA computes ``ncols`` columns: its strip and the left halo, the
     halo rounded up to 4 columns where the frame allows 16-byte vectors
@@ -246,14 +285,19 @@ def build_program(dag: PipelineDAG, h: int, w: int, rows_per_step: int,
     with no test. Beside the rings the CTA keeps R rows of the output
     stage and the rings' row table.
 
-    At ``prefetch_depth`` d >= 2 each feed stage (each input and each
-    history tap) gets a staging ring of d slots of R x ``ncols`` floats,
-    so the bill is the depth-1 bill plus d * R * ncols * 4 bytes per
-    feed. Outputs are stored from shared memory, so unlike
-    ``codegen.prefetch_ring_bytes`` (the TPU's VMEM arithmetic: input
-    and output rings, lanes padded to 128) the bill has no output rings.
-    ``poison_staging`` makes the kernel fill its staging rings with NaN
-    before the first copy, so a read that overtakes its copy shows.
+    At ``prefetch_depth`` d >= 2 the feeds (each input and each history
+    tap) are copied d - 1 row groups ahead straight into their line
+    rings, which grow to max(d * R + sh - 1, the plan's lines) rows
+    (:func:`smem_rings`, :func:`smem_tap_rings`); the other rings keep
+    their rows. So the bill is the depth-1 bill at the same strip plus
+    (d - 1) * R * pitch * 4 bytes per feed ring where the plan's lines
+    do not already cover the rows (``prefetch_bytes``). Outputs are
+    stored from shared memory, so unlike ``codegen.prefetch_ring_bytes``
+    (the TPU's VMEM arithmetic: input and output rings, lanes padded to
+    128) the bill has no output rings. ``poison_prefetch`` makes the
+    kernel fill with NaN every feed-ring slot a copy writes before any
+    read (all but the zero tail that stands for the rows above the band),
+    so a read that overtakes its copy shows.
     Raises ValueError for a DAG the kernel cannot run (unknown payload,
     table overflow, shared memory over the block limit) and for a depth
     below 1.
@@ -268,17 +312,23 @@ def build_program(dag: PipelineDAG, h: int, w: int, rows_per_step: int,
                          f"{THREADS}], got {threads}")
     r = rows_per_step
     up, left0 = dag.cumulative_extent()
-    live = smem_rings(dag, alloc_buffers, r)
-    taps = smem_tap_rings(dag, r)
     depths = dag.temporal_depths()
-    ring_rows: list[int] = []
-    ring_idx: dict = {}
-    for p, rows in live.items():
-        for j in range(depths.get(p, 1) - 1, 0, -1):
-            ring_idx[(p, j)] = len(ring_rows)
-            ring_rows.append(taps[(p, j)])
-        ring_idx[p] = len(ring_rows)
-        ring_rows.append(rows)
+
+    def rings_at(depth: int) -> tuple[list[int], dict]:
+        live = smem_rings(dag, alloc_buffers, r, depth)
+        taps = smem_tap_rings(dag, r, depth)
+        rows: list[int] = []
+        idx: dict = {}
+        for p, n in live.items():
+            for j in range(depths.get(p, 1) - 1, 0, -1):
+                idx[(p, j)] = len(rows)
+                rows.append(taps[(p, j)])
+            idx[p] = len(rows)
+            rows.append(n)
+        return rows, idx
+    ring_rows, ring_idx = rings_at(prefetch_depth)
+    tap_sh = tap_reach(dag)
+    rows_depth1 = sum(rings_at(1)[0])
     feeds = tuple(dag.input_stages())
     states = tuple(p for p in dag.topo_order if p in depths)
     fouts = tuple(frame_outputs(dag))
@@ -296,14 +346,11 @@ def build_program(dag: PipelineDAG, h: int, w: int, rows_per_step: int,
                          f"{1 + len(fouts)} outputs exceed the kernel's "
                          f"{MAX_STAGES} / {MAX_RINGS} / {MAX_FEEDS} / "
                          f"{MAX_OUTS}")
-    # the feed stages (inputs and taps) that own a staging ring
-    staged = [n for n in stages
-              if isinstance(n, tuple) or dag.stages[n].is_input] \
-        if prefetch_depth > 1 else []
     sw_max = max((e.sw for e in dag.edges), default=1)
     pad = -(-(sw_max - 1) // 4) * 4
     narrow = strip_w is None
     strip_w = STRIP_W if narrow else strip_w
+    want = None
     while True:
         strip_w = min(strip_w, w)
         vec = w % 4 == 0 and strip_w % 4 == 0
@@ -313,10 +360,12 @@ def build_program(dag: PipelineDAG, h: int, w: int, rows_per_step: int,
         rings_floats = sum(ring_rows) * pitch
         # the output stage's R rows, then two row tables of MAX_RINGS ints
         slots = rings_floats + r * ncols
-        staging_at = slots + 2 * MAX_RINGS
-        staging = len(staged) * prefetch_depth * r * ncols * 4
-        smem = staging_at * 4 + staging
-        if smem <= SMEM_LIMIT or not narrow or strip_w <= 32:
+        smem = (slots + 2 * MAX_RINGS) * 4
+        grown = (sum(ring_rows) - rows_depth1) * pitch * 4
+        if want is None:
+            want = _resident(smem - grown)
+        if not narrow or strip_w <= 32 or (
+                smem <= SMEM_LIMIT and _resident(smem) >= want):
             break
         strip_w = max(strip_w // 8 * 4, 32)
     if smem > SMEM_LIMIT:
@@ -330,7 +379,6 @@ def build_program(dag: PipelineDAG, h: int, w: int, rows_per_step: int,
         row = table[HDR + s * STAGE_INTS: HDR + (s + 1) * STAGE_INTS]
         row[S_RING] = ring_idx.get(name, -1)
         row[S_FOUT] = 1 + fouts.index(name) if name in fouts else -1
-        row[S_STAGE] = staged.index(name) if name in staged else -1
         row[S_WOFF] = len(wts)
         row[S_KIND] = KINDS.index("feed")
         # the last stage of a level ends in a barrier
@@ -344,6 +392,8 @@ def build_program(dag: PipelineDAG, h: int, w: int, rows_per_step: int,
             # always read the state; any valid feed index serves
             row[S_FEED] = feeds.index(p) if p in feeds else row[S_STATE]
             row[S_TAPJ] = j
+            if prefetch_depth > 1:
+                row[S_LEAD] = _lead(ring_rows[row[S_RING]], tap_sh[name])
             continue
         st = dag.stages[name]
         row[S_FINAL] = int(name == final)
@@ -351,6 +401,9 @@ def build_program(dag: PipelineDAG, h: int, w: int, rows_per_step: int,
         if st.is_input:
             row[S_OP] = OPS.index("input")
             row[S_FEED] = feeds.index(name)
+            if prefetch_depth > 1:
+                row[S_LEAD] = _lead(ring_rows[row[S_RING]],
+                                    _reach(dag, name))
             continue
         if st.fn is None:      # relay: identity on the producer's pixel
             op, srcs = "relay", [(ins[0].producer, 1, 1, 1)]
@@ -374,13 +427,13 @@ def build_program(dag: PipelineDAG, h: int, w: int, rows_per_step: int,
     grid_x = -(-w // strip_w)
     band_h = _band_height(h, grid_x, frames, up, r, target_ctas)
     # temporal programs launch the kernel's temporal instantiation, and
-    # depth >= 2 its staging one; the launch clears H_VEC when a tensor
+    # depth >= 2 its prefetch one; the launch clears H_VEC when a tensor
     # is not 16-byte aligned. A final stage of level 0 (an input wired
     # to the output) writes the output rows before the first barrier, so
     # their store ends in one of its own (H_OSYNC).
     table[:H_OSYNC + 1] = (
         len(stages), r, h, w, strip_w, left, ncols, band_h, up, smem,
-        int(bool(states)), prefetch_depth, staging_at, int(poison_staging),
+        int(bool(states)), prefetch_depth, int(poison_prefetch),
         pad, pitch, rings_floats, slots, len(ring_rows), int(vec),
         min(threads, ncols), int(level[final] == 0))
     wt = np.zeros(MAX_WTS, np.float32)
@@ -391,7 +444,7 @@ def build_program(dag: PipelineDAG, h: int, w: int, rows_per_step: int,
                           band_h=band_h, grid_x=grid_x,
                           grid_y=-(-h // band_h), smem_bytes=smem,
                           prefetch_depth=prefetch_depth,
-                          staging_bytes=staging)
+                          prefetch_bytes=grown)
 
 
 def _payload_operands(pipeline: str, name: str, fn, ins, wts: list
@@ -551,7 +604,7 @@ class StencilPipelineKernel:
     then B must be 1). CPU tensors take the plain version; CUDA tensors
     launch the kernel on the current stream, and ``launches`` counts
     those launches; ``prefetch_launches`` counts those at prefetch depth
-    >= 2 (the staging instantiations) among them.
+    >= 2 (the prefetch instantiations) among them.
     """
     name = "stencil_pipeline"
 

@@ -38,6 +38,17 @@ def _tinternal():
     return p.build()
 
 
+def _tstmean():
+    """A temporal pipeline whose final stage (a 4-frame mean of the
+    input's history taps) sits at DAG level 1: no barrier follows the
+    output store."""
+    p = Pipeline("tstmean")
+    x = p.input("in")
+    m = p.stage("m", [(x, 4, 1, 1)], algorithms.stmean_fn(4, 1, 1))
+    p.output("out", [(m, 1, 1)])
+    return p.build()
+
+
 def _generic(temporal: bool = False):
     """Windows no registered pipeline uses (the kernel's generic body): a
     7x2 conv, a 5x4 nms and, temporal, a (2, 3, 1) stmean."""
@@ -193,18 +204,19 @@ def test_video_engine_serves_through_the_kernel(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("depth", [2, 4])
+@pytest.mark.parametrize("depth", [2, 3, 4])
 @pytest.mark.parametrize("name", NAMES)
 def test_prefetch_kernel_matches_depth1_bitwise(cuda_device, name, depth):
-    """K1d: staging rings (poisoned with NaN before the first copy) give
-    the depth-1 kernel's and the plain version's pixels, bands with fewer
-    row groups than the depth included."""
+    """K1d: feeds copied ahead into their grown rings (the grown slots
+    poisoned with NaN before the first copy) give the depth-1 kernel's
+    and the plain version's pixels, bands with fewer row groups than the
+    depth included, scalar and float4 copies, rings that wrap mid-group."""
     dag = algorithms.ALGORITHMS[name]()
-    for h, w, r in [(37, 53, 8), (5, 48, 8), (90, 130, 1)]:
+    for h, w, r in [(37, 53, 8), (5, 48, 8), (90, 130, 1), (45, 1920, 3)]:
         frames = torch.from_numpy(_frames(9, 3, h, w)).to(cuda_device)
         frames[1] = 0.0
         prog = sp.build_program(dag, h, w, r, frames=3,
-                                prefetch_depth=depth, poison_staging=True)
+                                prefetch_depth=depth, poison_prefetch=True)
         base = sp.build_program(dag, h, w, r, frames=3)
         got = sp.stencil_pipeline(prog, [frames])
         torch.cuda.synchronize()
@@ -214,30 +226,81 @@ def test_prefetch_kernel_matches_depth1_bitwise(cuda_device, name, depth):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("depth", [2, 4])
+@pytest.mark.parametrize("depth", [2, 3, 4])
 @pytest.mark.parametrize("name,chunk", [(n, 4) for n in VIDEO]
-                         + [("tinternal", None)])
+                         + [("tinternal", None), ("tstmean", 4)])
 def test_prefetch_temporal_kernel_matches_plain_bitwise(cuda_device, name,
                                                         chunk, depth):
     """K1d on the temporal table: a 12-frame stream at depth d equals the
-    depth-1 executor's output and state at every step."""
-    dag = _tinternal() if name == "tinternal" \
-        else algorithms.VIDEO_ALGORITHMS[name]()
-    h, w = 37, 53
-    vid = torch.from_numpy(_frames(4, 12, h, w)).to(cuda_device)
-    ex = sp.make_video_executor(dag, h, w, rows_per_step=8, chunk=chunk,
-                                prefetch_depth=depth, device=cuda_device)
-    ex1 = sp.make_video_executor(dag, h, w, rows_per_step=8, chunk=chunk,
-                                 device=cuda_device)
-    state = state1 = ex.init_state()
+    depth-1 executor's output and state and the plain version at every
+    step, and so does the same program with the grown slots of its input
+    and tap rings poisoned with NaN, at a scalar and a float4 width."""
+    dag = {"tinternal": _tinternal, "tstmean": _tstmean}.get(
+        name, algorithms.VIDEO_ALGORITHMS.get(name))()
     step = chunk or 1
-    for t in range(0, 12, step):
-        x = vid[t:t + step] if chunk else vid[t]
-        got, state = ex({"in": x}, state)
-        exp, state1 = ex1({"in": x}, state1)
-        torch.cuda.synchronize()
-        assert torch.equal(got, exp)
-        assert all(torch.equal(state[p], state1[p]) for p in state)
+    for h, w in [(37, 53), (45, 1920)]:
+        vid = torch.from_numpy(_frames(4, 12, h, w)).to(cuda_device)
+        ex = sp.make_video_executor(dag, h, w, rows_per_step=8, chunk=chunk,
+                                    prefetch_depth=depth, device=cuda_device)
+        ex1 = sp.make_video_executor(dag, h, w, rows_per_step=8,
+                                     chunk=chunk, device=cuda_device)
+        poisoned = sp.build_program(dag, h, w, 8, frames=step,
+                                    prefetch_depth=depth,
+                                    poison_prefetch=True)
+        state = state1 = ex.init_state()
+        for t in range(0, 12, step):
+            x = vid[t:t + step] if chunk else vid[t]
+            res = sp.stencil_pipeline(poisoned, [x.reshape(-1, h, w)],
+                                      [state[p] for p in poisoned.states])
+            inputs = {"in": x.reshape(-1, h, w)}
+            plain, _ = sp.video_pipeline_plain(dag, {
+                **inputs, **sp.tap_feeds(dag, inputs, state, step)})
+            got, state = ex({"in": x}, state)
+            exp, state1 = ex1({"in": x}, state1)
+            torch.cuda.synchronize()
+            where = (name, (h, w), t)
+            assert torch.equal(got, exp), where
+            assert torch.equal(got.reshape(-1, h, w), plain), where
+            assert torch.equal((res[0] if poisoned.frame_outs else res)
+                               .reshape(got.shape), got), where
+            assert all(torch.equal(state[p], state1[p]) for p in state)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [2, 3])
+@pytest.mark.parametrize("name", ["generic", "tgeneric", "through"])
+def test_prefetch_generic_body_and_through_match_plain_bitwise(cuda_device,
+                                                               name, depth):
+    """K1d on the generic body (spatial and temporal) and on an output
+    wired straight to the input (the feed moves its rows from its ring to
+    the output block), poisoned, at a scalar and a float4 width."""
+    if name == "through":
+        p = Pipeline("through")
+        p.output("out", [(p.input("in"), 1, 1)])
+        dag = p.build()
+    else:
+        dag = _generic(name == "tgeneric")
+    depths = dag.temporal_depths()
+    rng = np.random.RandomState(22)
+    for h, w in [(37, 53), (45, 1920)]:
+        for r in (3, 8):
+            x = torch.from_numpy(_frames(6, 4, h, w)).to(cuda_device)
+            states = [torch.from_numpy(rng.rand(depths[q] - 1, h, w).astype(
+                np.float32)).to(cuda_device) for q in
+                sorted(depths, key=dag.topo_order.index)]
+            prog = sp.build_program(dag, h, w, r, frames=4,
+                                    prefetch_depth=depth,
+                                    poison_prefetch=True)
+            got = sp.stencil_pipeline(prog, [x], states)
+            base = sp.stencil_pipeline(sp.build_program(dag, h, w, r,
+                                                        frames=4),
+                                       [x], states)
+            torch.cuda.synchronize()
+            assert torch.equal(got, base), ((h, w), r)
+            inputs = {"in": x}
+            exp, _ = sp.video_pipeline_plain(dag, {**inputs, **sp.tap_feeds(
+                dag, inputs, dict(zip(prog.states, states)), 4)})
+            assert torch.equal(got, exp), ((h, w), r)
 
 
 @pytest.mark.cuda

@@ -5,10 +5,12 @@ few CUDA names. These tests compile the body of
 ``src/repro_torch/kernels/csrc/stencil_pipeline.cu`` with the host C++
 compiler under a small shim: one thread per block (``blockDim`` 1), so
 ``__syncthreads`` is a no-op; the ``_rn`` intrinsics as single float
-operations under ``-ffp-contract=off``; the asynchronous copies of the
-prefetch path as synchronous copies (or zero fills), their commit and
-wait as no-ops. Every CTA of a launch runs in turn, its shared memory
-filled with NaN first, so a read of a ring row or staging slot the CTA
+operations under ``-ffp-contract=off``; the asynchronous copies as
+deferred ones: each is recorded in the open commit group and lands (a
+copy, or a zero fill) only at the wait that covers its group, as on the
+card, so a read that overtakes its copy, or a wait count that drifts,
+reads what the slot held before. Every CTA of a launch runs in turn, its
+shared memory filled with NaN first, so a read of a ring row the CTA
 never wrote shows in the output. The result must equal
 ``stencil_pipeline_plain`` bitwise (``video_pipeline_plain`` for a
 temporal pipeline, over random frame-ring states), as the kernel must
@@ -26,6 +28,8 @@ themselves are checked on the card (``tests/test_torch_cuda.py``,
 ``chip_smoke.py``). Skips where no host C++ compiler is found.
 """
 import ctypes
+import dataclasses
+import re
 import shutil
 import subprocess
 
@@ -41,6 +45,7 @@ from repro_torch.kernels._build import CSRC
 
 NAMES = sorted(algorithms.ALGORITHMS)
 VIDEO = sorted(algorithms.VIDEO_ALGORITHMS)
+TEMPORAL = VIDEO + ["tinternal", "tgeneric", "tstmean"]
 
 
 def _tinternal():
@@ -50,6 +55,16 @@ def _tinternal():
     b = p.stage("blur", [(x, 3, 3)], algorithms.conv_fn(algorithms.G3))
     d = p.stage("diff", [(b, 2, 1, 1)], algorithms.frame_diff_fn)
     p.output("out", [(d, 1, 1)])
+    return p.build()
+
+
+def _tstmean():
+    """A temporal pipeline whose final stage (a 4-frame mean of the
+    input's history taps) sits at DAG level 1."""
+    p = Pipeline("tstmean")
+    x = p.input("in")
+    m = p.stage("m", [(x, 4, 1, 1)], algorithms.stmean_fn(4, 1, 1))
+    p.output("out", [(m, 1, 1)])
     return p.build()
 
 
@@ -72,6 +87,8 @@ def generic_pipeline(temporal: bool = False):
 def _dag(name):
     if name == "tinternal":
         return _tinternal()
+    if name == "tstmean":
+        return _tstmean()
     if name in ("generic", "tgeneric"):
         return generic_pipeline(name == "tgeneric")
     return (algorithms.ALGORITHMS.get(name)
@@ -109,21 +126,40 @@ static float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 static float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
 static float __fsqrt_rn(float a) { return std::sqrt(a); }
 static float __int_as_float(int i) { float f; memcpy(&f, &i, 4); return f; }
+// cp.async: a copy joins the open group (the last one) and lands when a
+// wait covers its group
+struct Copy { float* dst; const float* src; int n; bool ok; };
+static std::vector<std::vector<Copy>> g_groups(1);
+static void land(std::vector<Copy>& g) {
+  for (const Copy& k : g)
+    for (int i = 0; i < k.n; ++i) k.dst[i] = k.ok ? k.src[i] : 0.f;
+}
 static void cp_async4(float* dst, const float* src, bool ok) {
-  *dst = ok ? *src : 0.f;
+  g_groups.back().push_back(Copy{dst, src, 1, ok});
 }
 static void cp_async16(float* dst, const float* src, bool ok) {
-  for (int i = 0; i < 4; ++i) dst[i] = ok ? src[i] : 0.f;
+  g_groups.back().push_back(Copy{dst, src, 4, ok});
 }
-static void cp_async_wait_all() {}
-static void cp_async_commit() {}
-static void cp_async_wait(int) {}
+static void cp_async_commit() { g_groups.emplace_back(); }
+// wait_all: commit, then wait until no group is pending
+static void cp_async_wait_all() {
+  for (auto& g : g_groups) land(g);
+  g_groups.assign(1, {});
+}
+// at most min(n, 7) committed groups left pending
+static void cp_async_wait(int n) {
+  const int done = static_cast<int>(g_groups.size()) - 1 - std::min(n, 7);
+  for (int i = 0; i < done; ++i) land(g_groups[i]);
+  if (done > 0) g_groups.erase(g_groups.begin(), g_groups.begin() + done);
+}
 """
 
 _LAUNCHER = r"""
-extern "C" void host_launch(const int* table, const float* wts,
-                            const void* const* feeds, void* const* outs,
-                            int gx, int gy, int gz) {
+// returns the CTAs that ended with copies no wait covered
+extern "C" int host_launch(const int* table, const float* wts,
+                           const void* const* feeds, void* const* outs,
+                           int gx, int gy, int gz) {
+  int unwaited = 0;
   Program P;
   memcpy(P.hdr, table, sizeof(P.hdr));
   memcpy(P.st, table + kHdr, sizeof(P.st));
@@ -146,9 +182,13 @@ extern "C" void host_launch(const int* table, const float* wts,
     for (int y = 0; y < gy; ++y)
       for (int x = 0; x < gx; ++x) {
         std::fill(sm.begin(), sm.end(), NAN);
+        g_groups.assign(1, {});
         blockIdx = Dim3{x, y, z};
         pick_kernel(P.hdr[H_TEMPORAL], P.hdr[H_DEPTH] > 1)(P, F, O);
+        // a copy never waited for: the CTA ended before it landed
+        for (const auto& g : g_groups) unwaited += !g.empty();
       }
+  return unwaited;
 }
 """
 
@@ -211,7 +251,7 @@ def _host_library(tmp_path_factory, source: str, launcher: str):
 def host_kernel(tmp_path_factory):
     lib = _host_library(tmp_path_factory, "stencil_pipeline.cu", _LAUNCHER)
     lib.host_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-    lib.host_launch.restype = None
+    lib.host_launch.restype = ctypes.c_int
 
     def launch(prog, x, states=()):
         """Output (and frame outputs, if any) of ``prog`` over input
@@ -222,8 +262,9 @@ def host_kernel(tmp_path_factory):
             *[a.ctypes.data for a in (x, *states)])
         optrs = (ctypes.c_void_p * sp.MAX_OUTS)(
             *[a.ctypes.data for a in outs])
-        lib.host_launch(prog.table.ctypes.data, prog.wts.ctypes.data, feeds,
-                        optrs, prog.grid_x, prog.grid_y, x.shape[0])
+        assert lib.host_launch(prog.table.ctypes.data, prog.wts.ctypes.data,
+                               feeds, optrs, prog.grid_x, prog.grid_y,
+                               x.shape[0]) == 0, "copies no wait covered"
         if prog.frame_outs:
             return outs[0], dict(zip(prog.frame_outs, outs[1:]))
         return outs[0]
@@ -258,7 +299,7 @@ def test_host_compiled_kernel_matches_plain(host_kernel, name, strip_w,
     (sp.STRIP_W, sp.TARGET_CTAS),   # the executors' geometry
     (7, 1),                         # strips narrower than the halo
 ])
-@pytest.mark.parametrize("name", VIDEO + ["tinternal", "tgeneric"])
+@pytest.mark.parametrize("name", TEMPORAL)
 def test_host_compiled_temporal_kernel_matches_plain(host_kernel, name,
                                                      strip_w, target_ctas):
     """History taps read from the launch's own earlier frames and from
@@ -302,7 +343,29 @@ def _n_steps(prog, y):
     return -(-(hi - lo) // prog.rows_per_step)
 
 
-@pytest.mark.parametrize("depth", [2, 4])
+def _feed_rings(prog):
+    """(rows, lead) of each feed stage's ring: its rows in the ring table
+    (None: no ring) and the rows its copies fill before any read
+    (S_LEAD)."""
+    rows = prog.table[sp.HDR:].reshape(-1, sp.STAGE_INTS)
+    rings = prog.table[sp.HDR + sp.MAX_STAGES * sp.STAGE_INTS:].reshape(-1, 2)
+    return [(int(rings[r[sp.S_RING], 1]) if r[sp.S_RING] >= 0 else None,
+             int(r[sp.S_LEAD]))
+            for r in rows[:int(prog.table[sp.H_NSTAGES])]
+            if sp.KINDS[r[sp.S_KIND]] == "feed"]
+
+
+def _check_grown(prog, depth):
+    """Every feed has a ring whose lead (the slots copies write before
+    any read, poisoned with NaN first) holds the d row groups of the
+    prologue, and the rest of the ring (the zero tail that stands for
+    the rows above the band) lies past them."""
+    r = prog.rows_per_step
+    for rows, lead in _feed_rings(prog):
+        assert rows is not None and depth * r <= lead <= rows, (rows, lead)
+
+
+@pytest.mark.parametrize("depth", [2, 3, 4])
 @pytest.mark.parametrize("strip_w,target_ctas", [
     (sp.STRIP_W, sp.TARGET_CTAS),   # the executors' geometry
     (16, 64),                       # many strips and bands
@@ -312,10 +375,11 @@ def _n_steps(prog, y):
 def test_host_compiled_prefetch_kernel_matches_plain(host_kernel, name,
                                                      strip_w, target_ctas,
                                                      depth):
-    """Prefetch depth 2 and 4: every feed read through its staging ring
-    (slot t % depth, refilled with step t + depth) equals the plain
-    version bitwise, bands with fewer row groups than the depth
-    included."""
+    """Prefetch depth 2, 3 and 4: every feed copied d - 1 row groups ahead
+    into its grown ring (rings wrap mid-group at R = 3 and 8), the copies
+    deferred until the wait that covers them, equals the plain version
+    bitwise, bands with fewer row groups than the depth included; at R =
+    1 and 3 the grown slots start as NaN (poison_prefetch)."""
     dag = _dag(name)
     rng = np.random.RandomState(12)
     short = False
@@ -328,9 +392,8 @@ def test_host_compiled_prefetch_kernel_matches_plain(host_kernel, name,
                                     alloc_buffers=plan.alloc.buffers,
                                     strip_w=strip_w, target_ctas=target_ctas,
                                     prefetch_depth=depth,
-                                    poison_staging=r == 3)
-            assert prog.staging_bytes == depth * r * int(
-                prog.table[sp.H_NCOLS]) * 4
+                                    poison_prefetch=r != 8)
+            _check_grown(prog, depth)
             short |= any(_n_steps(prog, y) < depth
                          for y in range(0, h, prog.band_h))
             exp = sp.stencil_pipeline_plain(dag, {"in": torch.from_numpy(x)})
@@ -340,18 +403,19 @@ def test_host_compiled_prefetch_kernel_matches_plain(host_kernel, name,
     assert short
 
 
-@pytest.mark.parametrize("depth", [2, 4])
+@pytest.mark.parametrize("depth", [2, 3, 4])
 @pytest.mark.parametrize("strip_w,target_ctas", [
     (sp.STRIP_W, sp.TARGET_CTAS),   # the executors' geometry
+    (16, 64),                       # many strips and bands
     (7, 1),                         # strips narrower than the halo
 ])
-@pytest.mark.parametrize("name", VIDEO + ["tinternal", "tgeneric"])
+@pytest.mark.parametrize("name", TEMPORAL)
 def test_host_compiled_prefetch_temporal_kernel_matches_plain(
         host_kernel, name, strip_w, target_ctas, depth):
-    """Prefetch depth 2 and 4 on the temporal table: inputs and every
-    history tap (launch frames and random frame-ring states) staged
-    through their own rings; output and frame outputs equal the plain
-    version bitwise."""
+    """Prefetch depth 2, 3 and 4 on the temporal table: inputs and every
+    history tap (launch frames and random frame-ring states) copied ahead
+    into their own grown rings, poisoned with NaN first; output and frame
+    outputs equal the plain version bitwise."""
     dag = _dag(name)
     depths = dag.temporal_depths()
     rng = np.random.RandomState(6)
@@ -368,10 +432,11 @@ def test_host_compiled_prefetch_temporal_kernel_matches_plain(
                                         alloc_buffers=plan.alloc.buffers,
                                         strip_w=strip_w,
                                         target_ctas=target_ctas,
-                                        prefetch_depth=depth)
+                                        prefetch_depth=depth,
+                                        poison_prefetch=True)
+                _check_grown(prog, depth)
                 n_feeds = len(prog.feeds) + len(sp.temporal_taps(dag))
-                assert prog.staging_bytes == n_feeds * depth * r * int(
-                    prog.table[sp.H_NCOLS]) * 4
+                assert len(_feed_rings(prog)) == n_feeds
                 inputs = {"in": torch.from_numpy(x)}
                 ring = {p: torch.from_numpy(a)
                         for p, a in zip(prog.states, states)}
@@ -385,6 +450,43 @@ def test_host_compiled_prefetch_temporal_kernel_matches_plain(
                         assert np.array_equal(got_frames[p],
                                               frames[p].numpy()), where
                 assert np.array_equal(got, out.numpy()), where
+
+
+@pytest.mark.parametrize("name", ["xcorr-m", "tunsharp-t"])
+def test_host_compiled_prefetch_poison_spares_the_zero_tail(host_kernel,
+                                                           name):
+    """With poison_prefetch the grown slots start as NaN and none reaches
+    an output, while the zero tail (the slots that stand for the rows
+    above the band, read by the first row group) stays zero: poisoning
+    the whole ring instead puts NaN into the output."""
+    dag = _dag(name)
+    depths = dag.temporal_depths()
+    rng = np.random.RandomState(16)
+    h, w = 37, 53
+    plan = compile_pipeline(dag, w)
+    x = rng.rand(1, h, w).astype(np.float32)
+    states = [rng.rand(depths[p] - 1, h, w).astype(np.float32)
+              for p in sorted(depths, key=dag.topo_order.index)]
+    inputs = {"in": torch.from_numpy(x)}
+    for r in (3, 8):
+        prog = sp.build_program(dag, h, w, r,
+                                alloc_buffers=plan.alloc.buffers,
+                                target_ctas=8, prefetch_depth=3,
+                                poison_prefetch=True)
+        assert any(rows > lead for rows, lead in _feed_rings(prog))
+        out, _ = sp.video_pipeline_plain(dag, {**inputs, **sp.tap_feeds(
+            dag, inputs, {p: torch.from_numpy(a)
+                          for p, a in zip(prog.states, states)}, 1)})
+        assert np.array_equal(host_kernel(prog, x, states), out.numpy())
+        whole = dataclasses.replace(prog, table=prog.table.copy())
+        stages = whole.table[sp.HDR:].reshape(-1, sp.STAGE_INTS)
+        for row in stages[:int(whole.table[sp.H_NSTAGES])]:
+            if sp.KINDS[row[sp.S_KIND]] == "feed":
+                row[sp.S_LEAD] = whole.table[
+                    sp.HDR + sp.MAX_STAGES * sp.STAGE_INTS
+                    + 2 * row[sp.S_RING] + 1]
+        got = host_kernel(whole, x, states)
+        assert np.isnan(got).any() and not np.isnan(out.numpy()).any()
 
 
 def test_stage_bodies_cover_the_registered_pipelines():
@@ -421,6 +523,17 @@ def test_barriers_follow_dag_levels():
     assert [int(r[sp.S_SYNC]) for r in rows[:10]] == [0] * 7 + [1, 1, 1]
 
 
+@pytest.mark.parametrize("cu,py", [("kThreads", "THREADS"),
+                                   ("kMinBlocks", "MIN_BLOCKS")])
+def test_occupancy_model_uses_the_kernels_launch_bounds(cu, py):
+    """build_program's CTAs-per-SM model (``_resident``: threads per CTA,
+    CTAs per SM that registers allow) takes the kernel's launch bounds."""
+    src = (CSRC / "stencil_pipeline.cu").read_text()
+    assert "__launch_bounds__(kThreads, kMinBlocks)" in src
+    m = re.search(rf"constexpr int {cu} = (\d+);", src)
+    assert m and int(m.group(1)) == getattr(sp, py)
+
+
 # frames narrower than a 4-column vector allows (53, 130, 257: scalar
 # loads and stores) and 1920 (float4); 70 rows make two bands at 1920
 WIDTHS = [(12, 1920), (70, 1920), (9, 130), (7, 257), (11, 53)]
@@ -447,24 +560,30 @@ def test_host_compiled_kernel_vector_and_scalar_widths(host_kernel, name):
             assert np.array_equal(got, exp.numpy()), (name, (h, w), r)
 
 
-def test_host_compiled_kernel_passes_an_input_through(host_kernel):
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_host_compiled_kernel_passes_an_input_through(host_kernel, depth):
     """An output wired straight to the input: the feed stage writes the
     output rows itself (level 0, before the first barrier), at a scalar
-    and a vector width."""
+    and a vector width. At depth >= 2 the input, read by no stage, gets
+    a ring of d * R rows for its copies to land in, and each thread
+    moves the rows it copied from there to the output block."""
     p = Pipeline("through")
     p.output("out", [(p.input("in"), 1, 1)])
     dag = p.build()
     rng = np.random.RandomState(15)
     for h, w in [(37, 53), (20, 1920)]:
-        for r in (1, 8):
+        for r in (1, 3, 8):
             x = rng.rand(2, h, w).astype(np.float32)
             prog = sp.build_program(dag, h, w, r, frames=2,
-                                    target_ctas=10**6)
+                                    target_ctas=10**6, prefetch_depth=depth,
+                                    poison_prefetch=depth > 1)
             assert int(prog.table[sp.H_OSYNC]) == 1
+            assert _feed_rings(prog) == [(None, 0) if depth == 1
+                                         else (depth * r, depth * r)]
             assert np.array_equal(host_kernel(prog, x), x), ((h, w), r)
 
 
-@pytest.mark.parametrize("name", VIDEO + ["tinternal", "tgeneric"])
+@pytest.mark.parametrize("name", TEMPORAL)
 def test_host_compiled_temporal_kernel_vector_widths(host_kernel, name):
     """History taps and frame outputs at 1920 (float4 feeds) and 130
     (scalar) over chunks of 4 (1 with a frame output) equal the plain

@@ -1,17 +1,18 @@
 """Prefetch depth in the port: a change of I/O discipline, never of pixels.
 
-The port's twin of ``tests/test_overlap.py``. At ``prefetch_depth`` d >= 2
-the fused kernel stages every feed (input or history tap) through a
-d-slot shared-memory ring filled by asynchronous copies; the stage table
-and the math are the depth-1 ones. So every executor and both engines
-must give the depth-1 result at any depth, and match the JAX package's
-jnp oracles (``execute_reference`` / ``execute_reference_video``):
-bitwise first, else <= 32 ULP at the array's scale
-(``tests/test_video.py``), the tolerance for XLA's FMA contraction.
+The port's twin of ``tests/test_overlap.py``. At ``prefetch_depth``
+d >= 2 the fused kernel copies every feed (input or history tap)
+asynchronously d - 1 row groups ahead straight into its line ring, grown
+by (d - 1) * R rows; the stage table and the math are the depth-1 ones.
+So every executor and both engines must give the depth-1 result at any
+depth, and match the JAX package's jnp oracles (``execute_reference`` /
+``execute_reference_video``): bitwise first, else <= 32 ULP at the
+array's scale (``tests/test_video.py``), the tolerance for XLA's FMA
+contraction.
 
 On the CPU the wrapper runs the plain version, so these tests hold the
 plumbing — depth reaching every executor, cache keys, plan siblings, the
-shared-memory bill and its limit. The staging rings themselves are held
+shared-memory bill and its limit. The grown rings themselves are held
 bitwise as host C++ (``tests/test_torch_kernel_host.py``) and on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 """
@@ -241,8 +242,10 @@ def test_executor_keys_and_carries_depth(cache):
     assert (e1.prefetch_depth, e2.prefetch_depth) == (1, 2)
     assert cache.executor_for("harris-s", 16, 24, rows_per_step=8,
                               prefetch_depth=2) is e2
-    # the staging ring is real shared memory: the deep executor takes more
-    assert e2.smem_bytes == e1.smem_bytes + e2.program.staging_bytes
+    # the grown feed rows are real shared memory: the deep executor takes
+    # more, at the same strip
+    assert e2.program.strip_w == e1.program.strip_w
+    assert e2.smem_bytes == e1.smem_bytes + e2.program.prefetch_bytes
     assert e2.smem_bytes > e1.smem_bytes
     # the fused-kernel memo keys on depth too
     ops._PIPE_CACHE.clear()
@@ -254,32 +257,85 @@ def test_executor_keys_and_carries_depth(cache):
     assert b4 > b1 and ops._PIPE_CACHE.stats.misses == 2
 
 
+def _ring_rows(prog):
+    rings = prog.table[sp.HDR + sp.MAX_STAGES * sp.STAGE_INTS:]
+    return [int(n) for n in rings[1:2 * int(prog.table[sp.H_NRINGS]):2]]
+
+
 @pytest.mark.parametrize("r", [1, 8])
 @pytest.mark.parametrize("depth", DEPTHS)
 @pytest.mark.parametrize("name", IMAGE + VIDEO)
 def test_smem_bill_is_rings_plus_staging_per_feed(name, depth, r):
-    """smem = line and tap rings + d * R * ncols * 4 bytes per feed (each
-    input and each history tap) at d >= 2; no output rings and no lane
-    padding, unlike the TPU's prefetch_ring_bytes."""
+    """At depth d each feed ring (the input's live ring and each history
+    tap's) holds max(d * R + sh - 1, the plan's lines) rows, every other
+    ring its depth-1 rows, so smem(d) - smem(1, same strip) = the grown
+    rows * pitch * 4: (d - 1) * R * pitch * 4 per feed ring where the
+    plan's lines do not already cover them. No staging region, no output
+    rings and no lane padding, unlike the TPU's prefetch_ring_bytes; and
+    the default strip keeps depth 1's CTAs per SM."""
     dag = (algorithms.ALGORITHMS.get(name)
            or algorithms.VIDEO_ALGORITHMS[name])()
     plan = compile_pipeline(dag, 1920)
-    prog = sp.build_program(dag, 1080, 1920, r,
-                            alloc_buffers=plan.alloc.buffers,
+    bufs = plan.alloc.buffers
+    prog = sp.build_program(dag, 1080, 1920, r, alloc_buffers=bufs,
                             prefetch_depth=depth)
-    # the depth-1 program at the strip the staging left room for
-    rings = sp.build_program(dag, 1080, 1920, r,
-                             alloc_buffers=plan.alloc.buffers,
-                             strip_w=prog.strip_w).smem_bytes
-    ncols = int(prog.table[sp.H_NCOLS])
-    n_feeds = len(dag.input_stages()) + len(sp.temporal_taps(dag))
-    staging = n_feeds * depth * r * ncols * 4 if depth > 1 else 0
-    assert prog.staging_bytes == staging
-    assert prog.smem_bytes == rings + staging
+    one = sp.build_program(dag, 1080, 1920, r, alloc_buffers=bufs,
+                           strip_w=prog.strip_w)
+    # the input's rings come first: its taps, oldest first, then its live
+    # ring, which alone has plan lines to grow from
+    n = dag.temporal_depths().get("in", 1)
+    edges = dag.out_edges("in")
+    reach = [max(e.sh for e in edges if e.st > j) for j in range(n - 1, 0, -1)]
+    reach.append(max(e.sh for e in edges
+                     if not dag.stages[e.consumer].is_output))
+    lines = [0] * (n - 1) + [bufs["in"].n_lines_phys if "in" in bufs else 0]
+    rows_d, rows_1 = _ring_rows(prog), _ring_rows(one)
+    assert len(rows_d) == len(rows_1)
+    for i, (sh, k) in enumerate(zip(reach, lines)):
+        assert rows_1[i] == max(r + sh - 1, k)
+        assert rows_d[i] == max(depth * r + sh - 1, k)
+    assert rows_d[n:] == rows_1[n:]
+    pitch, ncols = int(prog.table[sp.H_PITCH]), int(prog.table[sp.H_NCOLS])
+    grown = (sum(rows_d) - sum(rows_1)) * pitch * 4
+    assert prog.prefetch_bytes == grown
+    assert prog.smem_bytes == one.smem_bytes + grown == 4 * (
+        sum(rows_d) * pitch + r * ncols + 2 * sp.MAX_RINGS)
+    if all(max(r + sh - 1, k) == r + sh - 1 for sh, k in zip(reach, lines)):
+        assert grown == n * (depth - 1) * r * pitch * 4
     assert int(prog.table[sp.H_DEPTH]) == depth
-    assert int(prog.table[sp.H_STAGING]) * 4 == rings
+    default = sp.build_program(dag, 1080, 1920, r, alloc_buffers=bufs)
+    assert sp._resident(prog.smem_bytes) >= sp._resident(default.smem_bytes)
     if depth > 1:
-        assert prefetch_ring_bytes(dag, r, depth, 1920) != staging
+        assert prefetch_ring_bytes(dag, r, depth, 1920) != grown
+
+
+# the d=2 bills at 1080p, R=8, 240-column strips: the depth-1 bill plus
+# R * pitch * 4 bytes per feed ring
+DEPTH2_BILLS = {"canny-m": 93_664, "canny-s": 83_264, "harris-m": 62_464,
+                "harris-s": 62_464, "denoise-m": 45_824,
+                "unsharp-m": 45_824, "xcorr-m": 42_176,
+                "tbackground-t": 147_648, "tdenoise-t": 85_344,
+                "tunsharp-t": 72_864, "tmotion-t": 60_384}
+
+
+@pytest.mark.parametrize("name", sorted(DEPTH2_BILLS))
+def test_depth2_bill_at_1080p(name):
+    """The d=2 bills at 240-column strips; where they would allow fewer
+    CTAs per SM than depth 1's, the default strip narrows until they do
+    not (canny-s, tdenoise-t, tbackground-t to 120 columns)."""
+    dag = (algorithms.ALGORITHMS.get(name)
+           or algorithms.VIDEO_ALGORITHMS[name])()
+    bufs = compile_pipeline(dag, 1920).alloc.buffers
+    prog = sp.build_program(dag, 1080, 1920, 8, alloc_buffers=bufs,
+                            prefetch_depth=2, strip_w=240)
+    assert prog.smem_bytes == DEPTH2_BILLS[name]
+    one = sp.build_program(dag, 1080, 1920, 8, alloc_buffers=bufs)
+    default = sp.build_program(dag, 1080, 1920, 8, alloc_buffers=bufs,
+                               prefetch_depth=2)
+    narrowed = sp._resident(prog.smem_bytes) < sp._resident(one.smem_bytes)
+    assert narrowed == (name in ("canny-s", "tdenoise-t", "tbackground-t"))
+    assert default.strip_w == (120 if narrowed else 240)
+    assert sp._resident(default.smem_bytes) >= sp._resident(one.smem_bytes)
 
 
 def test_depth_below_one_rejected():
@@ -295,8 +351,9 @@ def test_depth_below_one_rejected():
 
 
 def test_staging_over_the_block_limit_rejected():
-    """Deep staging passes the 227 KB block limit where depth 1 fits:
-    tbackground-t (input + 7 taps) at R=8, depth 64."""
+    """Deep grown rings pass the 227 KB block limit where depth 1 fits,
+    even at the narrowest strip: tbackground-t (input + 7 taps, eight
+    feed rings) at R=8, depth 64."""
     dag = algorithms.tbackground_t()
     sp.build_program(dag, 1080, 1920, 8, prefetch_depth=4)
     with pytest.raises(ValueError, match="shared memory"):
