@@ -63,12 +63,36 @@ inputs. Each phase prints one JSON line:
                rows), and the JAX package's sweep shapes, against
                ``swa_decode_plain``; kernel / plain / bound / SDPA times per
                call and on the device, with the split count and CTAs;
- 11. kernels — one line per kernel path: route, source, launches, error
+ 11. resilience — both engines in resilient mode at 1080p: (a) fault
+               free over the 7 spatial and the 4 video pipelines (2
+               streams of 16 frames each) at depths 1 and 2, every frame
+               on the primary rung with no retry and equal bit for bit to
+               the strict engine's, with the kernel's launches counted
+               from zero; (b) every compile broken: the reference rung
+               serves the spatial frames on the card bit for bit as the
+               kernel does, and each video stream (an internal temporal
+               producer too) rides a blackout on the reference rung and
+               resumes on the kernel within 32 ULP of the plain version;
+               (c) a seeded storm of every fault kind through both
+               engines with the telemetry collector running: the books
+               balance with one outcome per offered frame, every served
+               frame within 8 ULP of the plain version, the alert
+               transitions; (d) the storm's trace exported and validated.
+               Also the host time of ``screen_frames`` per 1080p request,
+               the p50/p99 latency of (a) against the strict engine's,
+               the reference rung's time per frame and the time to
+               rebuild the 7 executors after an eviction storm;
+ 12. kernels — one line per kernel path: route, source, launches, error
                and times (the K1 entries with device time, registers,
-               spill bytes, shared memory and CTAs per SM).
+               spill bytes, shared memory and CTAs per SM, and their
+               launches in the resilient run).
 
 Tolerance: bitwise (0 ULP) for the stencil kernel at every depth and for
-conv2d. They round every product and sum on their own in the plain
+conv2d, and for every frame the resilient engines serve fault free or
+off the spatial reference rung (the reference rung is the kernel's plain
+version); 32 ULP for a video stream resumed from rings the reference
+rung rebuilt, and 8 ULP in the storm, as the JAX package's resilience
+tests hold theirs. They round every product and sum on their own in the plain
 version's order (``_rn`` intrinsics, ``-fmad=false``) and take correctly
 rounded square roots. swa_decode sums its dot products in another order
 than the plain version: rtol 2e-4, atol 2e-5 (``kernels/swa_decode.py``).
@@ -120,6 +144,13 @@ SWA_SHAPE = (64, 4, 1, 256, 512)                 # B, Hq, Hkv, D, S
 # 48 heads, 8 kv heads, head dim 6144 / 48, window 4096; a decode batch of 8
 SWA_SHAPE_2 = (8, 48, 8, 128, 4096)
 SWA_SWEEP = [(1, 4, 4, 32, 16), (2, 8, 2, 64, 32), (3, 8, 1, 16, 64)]
+# resilience phase: the storm's seed, frame requests, video frames per
+# stream, and fault rates (high enough that every kind fires)
+SOAK_SEED, SOAK_REQUESTS, SOAK_STREAM_FRAMES = 11, 56, 32
+SOAK_DEADLINE_S = 0.25          # the SLO rules' p99 queue-wait bound
+SOAK_RATES = dict(compile=0.2, executor=0.1, nan_frame=0.1,
+                  shape_frame=0.08, dtype_frame=0.08, evict_storm=0.1,
+                  churn=0.15)
 
 
 def emit(phase: str, **fields) -> None:
@@ -624,6 +655,414 @@ def depth_phase(dev, mem_rate: float, flop_rate: float, sms: int) -> dict:
                                        for p in spatial) else "operations"}
 
 
+def drain(eng) -> list:
+    """Step an engine until nothing is queued; every result it gave."""
+    out = []
+    while eng.pending:
+        out += eng.step()
+    return out + eng.step()             # a last shed outbox
+
+
+def resilience_phase(dev) -> dict:
+    """Phase 11: both engines in resilient mode at 1080p. Returns the
+    kernel's launches in the fault-free resilient run per K1 entry."""
+    from repro_torch.core import algorithms
+    from repro_torch.imaging import FrameEngine, FrameRequest, PlanCache
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import stencil_pipeline as sp
+    from repro_torch.obs import trace
+    from repro_torch.obs.export import slo_summary, to_chrome_trace, \
+        validate_trace
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.obs.telemetry import TelemetryCollector, \
+        default_slo_rules
+    from repro_torch.resilience import ResilienceConfig, RetryPolicy, \
+        screen_frames
+    from repro_torch.resilience.chaos import FAULT_KINDS, ChaosMonkey, \
+        install_chaos
+    from repro_torch.video import VideoEngine, VideoFrame
+    names = sorted(algorithms.ALGORITHMS)
+    vnames = sorted(algorithms.VIDEO_ALGORITHMS)
+    kern = sp.stencil_pipeline
+    frame_in = list(frames(9000, SERVE_B * len(names), SERVE_H, SERVE_W))
+    streams_in = {(n, j): frames(9100 + 10 * i + j, STREAM_FRAMES, SERVE_H,
+                                 SERVE_W)
+                  for i, n in enumerate(vnames)
+                  for j in range(STREAMS_PER_PIPELINE)}
+
+    def frame_engine(**kw):
+        return FrameEngine(device=dev, max_batch=SERVE_B,
+                           rows_per_step=SERVE_R,
+                           tile_shape=(SERVE_H, SERVE_W), **kw)
+
+    def video_engine(**kw):
+        return VideoEngine(device=dev, chunk=VIDEO_CHUNK,
+                           rows_per_step=SERVE_R, **kw)
+
+    def serve_frames(eng) -> dict:
+        for i, x in enumerate(frame_in):
+            if eng.submit(FrameRequest(rid=i, pipeline=names[i % len(names)],
+                                       frames={"in": x})) is not True:
+                fail(f"request {i} refused")
+        done = {c.rid: c for c in drain(eng)}
+        if sorted(done) != list(range(len(frame_in))) or not all(
+                hasattr(c, "output") for c in done.values()):
+            fail(f"frames not all served: {list(done.values())[:3]!r}")
+        return done
+
+    def serve_streams(eng) -> dict:
+        sids = {eng.open_stream(key[0], SERVE_H, SERVE_W): key
+                for key in streams_in}
+        done = {key: [] for key in streams_in}
+        for t in range(0, STREAM_FRAMES, VIDEO_CHUNK):
+            for sid, key in sids.items():
+                for f in streams_in[key][t:t + VIDEO_CHUNK]:
+                    if eng.submit(VideoFrame(sid, {"in": f})) is not True:
+                        fail(f"stream {sid} refused a frame")
+            for c in drain(eng):
+                if not hasattr(c, "warm"):
+                    fail(f"stream frame not served: {c!r}")
+                done[sids[c.stream]].append(c)
+        return done
+
+    def primary_only(eng, served, where: str) -> None:
+        rungs = {c.rung for c in served}
+        if rungs != {"default"} or eng.metrics.executor_retries \
+                or eng.cache.stats.compile_retries \
+                or eng.metrics.fallback_frames:
+            fail(f"{where}: fault-free run served rungs {sorted(rungs)} "
+                 f"with {eng.metrics.executor_retries} retries, "
+                 f"{eng.cache.stats.compile_retries} compile retries, "
+                 f"{eng.metrics.fallback_frames} fallback frames")
+        if any(c.output.device.type != "cuda" for c in served):
+            fail(f"{where}: an output left the card")
+
+    def pct_ms(done) -> list:
+        lat = [c.latency_s for c in done]
+        return [float(v) * 1e3 for v in np.percentile(lat, [50, 99])]
+
+    # ------------------------------------------------- (a) fault free
+    def turns(strict, res, serve, flat):
+        """Serve in turns strict, resilient, resilient, strict; returns
+        per engine its turns' (results, execute seconds), and the kernel's
+        launches in the resilient turns, counted from zero."""
+        out, n = {"strict": [], "resilient": []}, 0
+        for label in ("strict", "resilient", "resilient", "strict"):
+            eng = strict if label == "strict" else res
+            if label == "resilient":
+                kern.launches = kern.prefetch_launches = 0
+            e0 = eng.metrics.execute_s
+            done = flat(serve(eng))
+            torch.cuda.synchronize()
+            if label == "resilient":
+                n += kern.prefetch_launches if eng.prefetch_depth > 1 \
+                    else kern.launches
+            out[label].append((done, eng.metrics.execute_s - e0))
+        return out, n
+
+    def compare(out, depth: int, what: str) -> dict:
+        want = out["strict"][0][0]
+        for done, _ in out["resilient"] + out["strict"][1:]:
+            if [c.rid for c in done] != [c.rid for c in want] or not all(
+                    torch.equal(a.output, b.output)
+                    for a, b in zip(done, want)):
+                fail(f"{what} depth {depth}: a turn differs from the "
+                     f"strict engine's first")
+        return {label: [{"latency_ms_p50_p99": pct_ms(done),
+                         "execute_ms_per_frame": ex / len(done) * 1e3}
+                        for done, ex in runs]
+                for label, runs in out.items()}
+
+    def by_rid(done: dict) -> list:
+        return [done[rid] for rid in sorted(done)]
+
+    def by_stream(done: dict) -> list:
+        for key, cs in done.items():
+            if [c.index for c in cs] != list(range(STREAM_FRAMES)):
+                fail(f"stream {key} delivered {[c.index for c in cs]}")
+        return [c for key in sorted(done) for c in done[key]]
+
+    fault_free, launches, strict_d1, recompile_s = {}, {}, None, None
+    for depth in (1, 2):
+        strict = frame_engine(prefetch_depth=depth)
+        res = frame_engine(prefetch_depth=depth,
+                           resilience=ResilienceConfig())
+        for eng in (strict, res):   # the server builds its executors first
+            for name in names:
+                eng.cache.executor_for(name, SERVE_H, SERVE_W, batch=SERVE_B,
+                                       rows_per_step=SERVE_R,
+                                       prefetch_depth=depth)
+        out, n_frames = turns(strict, res, serve_frames, by_rid)
+        for done, _ in out["resilient"]:
+            primary_only(res, done, f"frames depth {depth}")
+        frame_turns = compare(out, depth, "frames")
+        if depth == 1:
+            strict_d1 = {c.rid: c for c in out["strict"][0][0]}
+            n_ev = res.cache.evict_executors()
+            t0 = time.perf_counter()
+            for name in names:
+                res.cache.executor_for(name, SERVE_H, SERVE_W, batch=SERVE_B,
+                                       rows_per_step=SERVE_R)
+            recompile_s = {"executors": n_ev,
+                           "seconds": time.perf_counter() - t0}
+        del out
+        vstrict = video_engine(prefetch_depth=depth)
+        vres = video_engine(prefetch_depth=depth,
+                            resilience=ResilienceConfig())
+        for eng in (vstrict, vres):
+            for name in vnames:
+                eng.cache.video_executor_for(name, SERVE_H, SERVE_W,
+                                             chunk=VIDEO_CHUNK,
+                                             rows_per_step=SERVE_R,
+                                             prefetch_depth=depth)
+        out, n_video = turns(vstrict, vres, serve_streams, by_stream)
+        for done, _ in out["resilient"]:
+            primary_only(vres, done, f"video depth {depth}")
+        video_turns = compare(out, depth, "video")
+        del out
+        if n_frames == 0 or n_video == 0:
+            fail(f"depth {depth}: the resilient run launched the kernel "
+                 f"{n_frames} (frames) and {n_video} (video) times")
+        launches[depth] = (n_frames, n_video)
+        fault_free[f"depth{depth}"] = {
+            "frames_per_turn": len(frame_in),
+            "video_frames_per_turn": len(streams_in) * STREAM_FRAMES,
+            "turns": "strict, resilient, resilient, strict",
+            "launches_frames": n_frames, "launches_video": n_video,
+            "max_ulp_vs_strict": 0.0, "frames": frame_turns,
+            "video": video_turns}
+
+    # --------------------------------------------- (b) reference rung
+    def broken(label):
+        raise RuntimeError(f"compile broken on purpose: {label}")
+
+    ref_cfg = ResilienceConfig(retry=RetryPolicy(max_attempts=1),
+                               breaker_failures=1, breaker_reset_s=0.0)
+    reng = frame_engine(resilience=ref_cfg)
+    reng.cache.compile_hook = broken
+    t0 = time.perf_counter()
+    got = serve_frames(reng)
+    ladder_s = time.perf_counter() - t0
+    for rid, c in got.items():
+        if c.rung != "reference" or c.output.device.type != "cuda":
+            fail(f"frame {rid} served by {c.rung} on {c.output.device}")
+        if not torch.equal(c.output, strict_d1[rid].output):
+            fail(f"reference rung frame {rid} differs from the kernel's")
+    if reng.metrics.fallback_frames != len(got):
+        fail(f"{reng.metrics.fallback_frames} fallback frames counted "
+             f"for {len(got)}")
+    ref_ms = {}
+    for i, name in enumerate(names):        # the rung alone, one batch
+        batch = [FrameRequest(rid=j, pipeline=name,
+                              frames={"in": frame_in[j]})
+                 for j in range(i, len(frame_in), len(names))]
+        reng._run_reference(name, batch)
+        t0 = time.perf_counter()
+        reng._run_reference(name, batch)
+        ref_ms[name] = (time.perf_counter() - t0) / len(batch) * 1e3
+    del got, strict_d1
+
+    vcache = PlanCache(device=dev, retry=ref_cfg.retry, pipelines={
+        **algorithms.VIDEO_ALGORITHMS, "tinternal": tinternal})
+    veng = video_engine(cache=vcache, resilience=ref_cfg)
+    resumed = {}
+    for i, name in enumerate(vnames + ["tinternal"]):
+        vid = frames(9300 + i, STREAM_FRAMES, SERVE_H, SERVE_W)
+        sid = veng.open_stream(name, SERVE_H, SERVE_W)
+        outs, rungs, black_s = [], [], 0.0
+        for t in range(0, STREAM_FRAMES, VIDEO_CHUNK):
+            if t == VIDEO_CHUNK:            # blackout: chunks 1 and 2
+                vcache.compile_hook = broken
+                vcache.evict_executors()
+            elif t == 3 * VIDEO_CHUNK:      # recovery
+                vcache.compile_hook = None
+            for f in vid[t:t + VIDEO_CHUNK]:
+                if veng.submit(VideoFrame(sid, {"in": f})) is not True:
+                    fail(f"{name}: a frame was refused")
+            t0 = time.perf_counter()
+            for c in drain(veng):
+                if not hasattr(c, "warm"):
+                    fail(f"{name}: frame not served: {c!r}")
+                outs.append(c.output)
+                rungs.append(c.rung)
+            if vcache.compile_hook is not None:
+                black_s += time.perf_counter() - t0
+        want_rungs = ["default"] * VIDEO_CHUNK + ["reference"] * (
+            2 * VIDEO_CHUNK) + ["default"] * (STREAM_FRAMES
+                                              - 3 * VIDEO_CHUNK)
+        if rungs != want_rungs:
+            fail(f"{name}: rungs {rungs}")
+        if any(o.device.type != "cuda" for o in outs):
+            fail(f"{name}: an output left the card")
+        exp = ref.video_pipeline_ref(vcache.dag_for(name),
+                                     {"in": torch.from_numpy(vid).to(dev)})
+        err, ulp = ulp_err(torch.stack(outs), exp)
+        if ulp > 32:
+            fail(f"{name}: resumed stream differs from video_pipeline_ref "
+                 f"by {ulp} ULP")
+        resumed[name] = {"max_abs_err": err, "max_ulp": ulp,
+                         "blackout_ms_per_frame":
+                             black_s / (2 * VIDEO_CHUNK) * 1e3}
+        veng.close_stream(sid)
+
+    # ------------------------------------------------- (c) the storm
+    reg = MetricsRegistry()
+
+    def soak_cfg():
+        return ResilienceConfig(
+            retry=RetryPolicy(max_attempts=2, base_delay_s=1e-4,
+                              seed=SOAK_SEED),
+            breaker_failures=2, breaker_reset_s=0.05,
+            default_deadline_s=SOAK_DEADLINE_S)
+    feng = frame_engine(registry=reg, max_pending=8, resilience=soak_cfg())
+    seng = video_engine(registry=reg, max_pending=8, resilience=soak_cfg())
+    fmonkey = ChaosMonkey(seed=SOAK_SEED, **{
+        k: v for k, v in SOAK_RATES.items() if k != "churn"})
+    vmonkey = ChaosMonkey(seed=SOAK_SEED + 1, **SOAK_RATES)
+    install_chaos(feng.cache, fmonkey)
+    install_chaos(seng.cache, vmonkey)
+    col = TelemetryCollector(
+        reg, period_s=0.05,
+        rules=default_slo_rules("frame_engine", window_s=5.0)
+        + default_slo_rules("video_engine", window_s=5.0))
+    rng = np.random.RandomState(SOAK_SEED)
+    sent, fed, fout, vout = {}, {}, [], []
+    trace.clear()
+    trace.enable()
+    t0 = time.perf_counter()
+    try:
+        with col:
+            for rid in range(SOAK_REQUESTS):
+                x = rng.rand(SERVE_H, SERVE_W).astype(np.float32)
+                fr, _ = fmonkey.corrupt({"in": x})
+                fmonkey.maybe_storm(feng.cache)
+                name = names[rid % len(names)]
+                r = feng.submit(FrameRequest(rid=rid, pipeline=name,
+                                             frames=fr))
+                if r is True:
+                    sent[rid] = (name, fr["in"])
+                else:
+                    fout.append(r)
+                if rid % 3 == 2:
+                    fout += feng.step()
+            fout += drain(feng)
+            sids = [seng.open_stream(n, SERVE_H, SERVE_W)
+                    for n in ("tmotion-t", "tunsharp-t")]
+            for sid in sids:
+                fed[sid] = []
+            for rid in range(2 * SOAK_STREAM_FRAMES):
+                k = rid % 2
+                if vmonkey.roll("churn"):
+                    vout += seng.close_stream(sids[k], cancel=True)
+                    sids[k] = seng.open_stream(
+                        ("tmotion-t", "tunsharp-t")[k], SERVE_H, SERVE_W)
+                    fed[sids[k]] = []
+                x = rng.rand(SERVE_H, SERVE_W).astype(np.float32)
+                fr, _ = vmonkey.corrupt({"in": x})
+                vmonkey.maybe_storm(seng.cache)
+                r = seng.submit(VideoFrame(sids[k], fr, rid=rid))
+                if r is True:
+                    fed[sids[k]].append((rid, fr["in"]))
+                else:
+                    vout.append(r)
+                if rid % 3 == 2:
+                    vout += seng.step()
+            vout += drain(seng)
+            col.sample_once()
+        events = trace.events()
+    finally:
+        trace.disable()
+        trace.clear()
+    soak_s = time.perf_counter() - t0
+    books = {}
+    for label, eng, outs, n in (("frames", feng, fout, SOAK_REQUESTS),
+                                ("video", seng, vout,
+                                 2 * SOAK_STREAM_FRAMES)):
+        rec = eng.metrics.reconcile()
+        if not rec["balanced"] or rec["in_flight"] or rec["offered"] != n \
+                or sorted(o.rid for o in outs) != list(range(n)):
+            fail(f"soak {label}: books do not balance: {rec}, "
+                 f"{len(outs)} outcomes for {n} offered")
+        kinds = {}
+        for o in outs:
+            kind = "completed" if hasattr(o, "output") else \
+                type(o).__name__
+            kinds[kind] = kinds.get(kind, 0) + 1
+        books[label] = {**rec, "outcomes": kinds,
+                        "fallback_frames": eng.metrics.fallback_frames,
+                        "retries": eng.metrics.executor_retries}
+    soak_ulp = 0.0
+    for o in fout:
+        if hasattr(o, "output"):
+            name, x = sent[o.rid]
+            _, ulp = ulp_err(o.output, sp.stencil_pipeline_plain(
+                feng.cache.dag_for(name), {"in": torch.from_numpy(x)
+                                           .to(dev)}))
+            soak_ulp = max(soak_ulp, ulp)
+    vdone = {o.rid: o for o in vout if hasattr(o, "output")}
+    if not vdone or not any(hasattr(o, "output") for o in fout):
+        fail("the storm served no frame")
+    for sid, items in fed.items():
+        eff = [(rid, x) for rid, x in items if rid in vdone]
+        if eff:
+            exp = ref.video_pipeline_ref(
+                seng.cache.dag_for(vdone[eff[0][0]].pipeline),
+                {"in": torch.from_numpy(np.stack([x for _, x in eff]))
+                 .to(dev)})
+            _, ulp = ulp_err(torch.stack([vdone[rid].output
+                                          for rid, _ in eff]), exp)
+            soak_ulp = max(soak_ulp, ulp)
+    if soak_ulp > 8:
+        fail(f"the storm served a frame {soak_ulp} ULP off the plain "
+             f"version")
+    injected = fmonkey.injected + vmonkey.injected
+    if any(injected[k] == 0 for k in FAULT_KINDS):
+        fail(f"the storm missed a fault kind: {dict(injected)}")
+    alerts = [{"rule": a["rule"], "fired_count": a["fired_count"],
+               "firing": a["firing"], "transitions": a["transitions"]}
+              for a in col.alert_snapshot()]
+
+    # ------------------------------------------------------ (d) export
+    data = to_chrome_trace(events)
+    errs = validate_trace(data)
+    if errs:
+        fail(f"the storm's trace does not validate: {errs[:5]}")
+
+    screen = {"repeated": [], "distinct": []}
+    for kind, xs in (("repeated", [frame_in[0]] * 20),
+                     ("distinct", frame_in)):
+        for x in xs:
+            t0 = time.perf_counter()
+            if screen_frames({"in": x}, {"in"}) is not None:
+                fail("a clean 1080p frame failed screening")
+            screen[kind].append(time.perf_counter() - t0)
+    totals = {k: sum(b[k] for b in books.values())
+              for k in ("offered", "completed", "shed", "rejected",
+                        "cancelled", "failed", "fallback_frames")}
+    emit("resilience", shape=[SERVE_H, SERVE_W], batch=SERVE_B,
+         chunk=VIDEO_CHUNK, rows_per_step=SERVE_R,
+         fault_free=fault_free,
+         reference={"frames": len(frame_in),
+                    "ladder_s": ladder_s,
+                    "ladder_ms_per_frame": ladder_s / len(frame_in) * 1e3,
+                    "engine_execute_ms_per_frame":
+                        reng.metrics.execute_s / len(frame_in) * 1e3,
+                    "rung_ms_per_frame": ref_ms,
+                    "video_resumed": resumed},
+         soak={**totals, "seconds": soak_s, "books": books,
+               "injected": dict(injected), "max_ulp": soak_ulp,
+               "tolerance_ulp": 8, "alerts": alerts,
+               "telemetry_samples": col.samples_taken},
+         export={"events": len(events), "errors": len(errs),
+                 "slo": slo_summary(data)},
+         screen_ms_1080p={k: {"median": float(np.median(v)) * 1e3,
+                              "max": max(v) * 1e3}
+                          for k, v in screen.items()},
+         recompile_after_evict_storm=recompile_s)
+    return {"spatial": launches[1][0], "temporal": launches[1][1],
+            "prefetch": sum(launches[2])}
+
+
 def _registers(lib: str, pattern: str) -> dict | None:
     """ptxas's registers and spill bytes of the one entry function of
     library ``lib`` whose mangled name holds ``pattern``."""
@@ -1036,7 +1475,10 @@ def main() -> None:
     k2 = conv2d_phase(dev, mem_rate, flop_rate)
     k3 = swa_phase(dev, mem_rate, flop_rate)
 
-    # --------------------------------------------------- 11. kernels line
+    # ---------------------------------------------------- 11. resilience
+    res = resilience_phase(dev)
+
+    # --------------------------------------------------- 12. kernels line
     share: dict[str, float] = {}
     for p in per.values():
         share[p["bound_by"]] = share.get(p["bound_by"], 0.0) + p["bound_ms"]
@@ -1044,7 +1486,8 @@ def main() -> None:
         "name": sp.stencil_pipeline.name, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/stencil_pipeline.cu",
         "replaces": "src/repro/kernels/stencil_pipeline.py:423",
-        "launches": launches, "max_abs_err": max_err, "max_ulp": max_ulp,
+        "launches": launches, "launches_resilience": res["spatial"],
+        "max_abs_err": max_err, "max_ulp": max_ulp,
         "ms": sum(p["ms"] for p in per.values()),
         "device_ms": sum(p["device_ms"] for p in per.values()),
         **k1_entry_resources(per, "spatial"),
@@ -1062,6 +1505,7 @@ def main() -> None:
                          ":188-194, :200-213, :227-235, :255-266, "
                          ":631-688)",
         "launches": k1c["launches"],
+        "launches_resilience": res["temporal"],
         "max_abs_err": max(k1c_err, k1c["max_abs_err"]),
         "max_ulp": max(k1c_ulp, k1c["max_ulp"]), "ms": k1c["ms"],
         "device_ms": k1c["device_ms"],
@@ -1075,7 +1519,9 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/stencil_pipeline.cu",
         "replaces": "src/repro/kernels/stencil_pipeline.py:423",
         "replaces_part": "prefetch_depth >= 2 rings (:319-421)",
-        "launches": k1d["launches"], "max_abs_err": k1d["max_abs_err"],
+        "launches": k1d["launches"],
+        "launches_resilience": res["prefetch"],
+        "max_abs_err": k1d["max_abs_err"],
         "max_ulp": k1d["max_ulp"], "ms": k1d["ms"],
         **{k: k1d[k] for k in ("device_ms", "device_ms_depth1",
                                "video_device_ms", "video_device_ms_depth1",

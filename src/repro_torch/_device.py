@@ -41,3 +41,22 @@ def raw_stream(index: int) -> int:
     ``torch.cuda.current_stream`` builds a Stream object on every call;
     a launch needs only the handle."""
     return torch._C._cuda_getCurrentRawStream(index)
+
+
+def caller_stream_context():
+    """Capture the calling thread's current card and stream; returns a
+    function that builds a context making them current in another
+    thread. A fresh thread starts on card 0 and its default stream, so
+    work handed to one (a timed attempt) would otherwise launch on
+    another card or stream than its caller's. A no-op context before
+    CUDA is initialised (and on a machine without a card)."""
+    if not torch.cuda.is_initialized():
+        return contextlib.nullcontext
+    index = torch.cuda.current_device()
+    stream = torch.cuda.current_stream(index)
+
+    @contextlib.contextmanager
+    def context():
+        with torch.cuda.device(index), torch.cuda.stream(stream):
+            yield
+    return context

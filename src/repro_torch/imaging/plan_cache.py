@@ -67,6 +67,7 @@ _STAT_FIELDS = (
     "plan_compile_s", "exec_compile_s",
     "tunes",                    # autotune searches run (one per (name, w))
     "tune_s",
+    "compile_retries",          # compile attempts re-run under the policy
 )
 
 
@@ -120,7 +121,8 @@ class PlanCache:
                  max_execs: int = 256,
                  tune_options: tuple[MemConfig, ...] = dse.TUNE_OPTIONS,
                  tune_max_candidates: int = 128,
-                 registry: MetricsRegistry | None = None):
+                 registry: MetricsRegistry | None = None,
+                 retry=None):
         if max_plans < 1 or max_execs < 1:
             raise ValueError(f"max_plans/max_execs must be >= 1, got "
                              f"{max_plans}/{max_execs}")
@@ -142,6 +144,37 @@ class PlanCache:
         self.max_plans = max_plans
         self.max_execs = max_execs
         self.stats = CacheStats(registry=registry)
+        # resilience wiring, all optional:
+        #   ``retry`` — a repro_torch.resilience.RetryPolicy; every real
+        #     compile (ILP solve, executor build) runs under it, so
+        #     transient failures get bounded jittered-backoff retries
+        #     before surfacing to the engine's fallback ladder.
+        #   ``compile_hook(label)`` — fault-injection seam, called at
+        #     the top of each real compile *inside* the retry boundary
+        #     (the chaos harness raises here to prove retries work).
+        #   ``executor_wrapper(ex)`` — applied to every executor handed
+        #     out, hit or miss (the chaos harness wraps calls to inject
+        #     executor exceptions without touching the cached object).
+        self.retry = retry
+        self.compile_hook = None
+        self.executor_wrapper = None
+
+    def _compile(self, fn: Callable, label: str):
+        """Run one compile step under the retry policy + chaos seam."""
+        def attempt():
+            if self.compile_hook is not None:
+                self.compile_hook(label)
+            return fn()
+        if self.retry is None:
+            return attempt()
+
+        def on_retry(attempt_no, delay, exc):
+            self.stats.compile_retries += 1
+        return self.retry.call(attempt, on_retry=on_retry)
+
+    def _wrap(self, ex):
+        return ex if self.executor_wrapper is None \
+            else self.executor_wrapper(ex)
 
     # ------------------------------------------------------------- lookups
     def dag_for(self, name: str) -> PipelineDAG:
@@ -236,9 +269,11 @@ class PlanCache:
                                            rows_per_step=rows_per_step,
                                            prefetch_depth=prefetch_depth)
             else:
-                plan = compile_pipeline(self.dag_for(name), w, mem=mem,
-                                        rows_per_step=rows_per_step,
-                                        prefetch_depth=prefetch_depth)
+                plan = self._compile(
+                    lambda: compile_pipeline(self.dag_for(name), w, mem=mem,
+                                             rows_per_step=rows_per_step,
+                                             prefetch_depth=prefetch_depth),
+                    f"plan:{name}:{w}")
         self.stats.plan_compile_s += time.perf_counter() - t0
         while len(self._plans) >= self.max_plans:
             self._evict_lru_plan()
@@ -255,20 +290,23 @@ class PlanCache:
         if key in self._execs:
             self.stats.exec_hits += 1
             self._execs.move_to_end(key)
-            return self._execs[key]
+            return self._wrap(self._execs[key])
         plan = self.plan_for(name, w, mem=mem, rows_per_step=rows_per_step,
                              prefetch_depth=prefetch_depth)
         self.stats.exec_misses += 1
         t0 = time.perf_counter()
         with trace.span("cache.exec", pipeline=name, kind=kind, h=h, w=w,
                         batch=shape_leg, hit=False):
-            ex = build(self.dag_for(name), plan)
+            ex = self._compile(
+                lambda: build(self.dag_for(name), plan),
+                f"{'exec' if kind == 'frame' else 'video_exec'}:"
+                f"{name}:{h}x{w}")
         self.stats.exec_compile_s += time.perf_counter() - t0
         while len(self._execs) >= self.max_execs:
             self._execs.popitem(last=False)
             self.stats.exec_evictions += 1
         self._execs[key] = ex
-        return ex
+        return self._wrap(ex)
 
     def executor_for(self, name: str, h: int, w: int,
                      batch: int | None = None,
@@ -301,8 +339,10 @@ class PlanCache:
                                                   device=self.device))
 
     def evict_executors(self) -> int:
-        """Drop every resident executor (plans and tunings stay). Returns
-        the number of executors evicted."""
+        """Drop every resident executor (plans and tunings stay). The
+        cache-eviction-storm surface: the chaos harness calls this
+        mid-serve to prove engines rebuild transparently under load.
+        Returns the number of executors evicted."""
         n = len(self._execs)
         self._execs.clear()
         self.stats.exec_evictions += n

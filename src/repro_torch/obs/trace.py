@@ -24,7 +24,8 @@ zero-cost guarantee when disabled.
     shared no-op singleton; no allocation, no clock read, no lock. The
     CI perf gate (< 2% disabled-mode overhead) leans on this.
 
-Events are relative-timestamped (perf_counter_ns since tracer creation).
+Events are relative-timestamped (perf_counter_ns since tracer creation);
+``obs.export`` turns them into Chrome/Perfetto ``trace_event`` JSON.
 """
 from __future__ import annotations
 

@@ -12,6 +12,8 @@ intrinsics, built with ``-fmad=false``) in the plain version's order, and
 the square root is correctly rounded like the plain one's. swa_decode
 sums its dot products in another order: rtol 2e-4, atol 2e-5.
 """
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -23,7 +25,9 @@ from repro_torch.imaging import FrameEngine, FrameRequest, PlanCache, \
 from repro_torch.kernels import conv2d_stencil, ops
 from repro_torch.kernels import stencil_pipeline as sp
 from repro_torch.kernels import swa_decode as swa
-from repro_torch.video import VideoEngine
+from repro_torch.resilience import ResilienceConfig, RetryPolicy
+from repro_torch.resilience.chaos import ChaosMonkey, install_chaos
+from repro_torch.video import VideoEngine, VideoFrame
 
 NAMES = sorted(algorithms.ALGORITHMS)
 VIDEO = sorted(algorithms.VIDEO_ALGORITHMS)
@@ -331,6 +335,179 @@ def test_engines_serve_through_the_prefetch_kernel(cuda_device):
         veng.cache.dag_for("tbackground-t"),
         {"in": torch.from_numpy(vid).to(cuda_device)})
     assert torch.equal(torch.stack(out[sid]), exp)
+
+
+def _ulp(got, exp):
+    """|got - exp| at its max, in ULP at the array's scale."""
+    err = (got - exp).abs().max().item()
+    return err / float(np.spacing(np.float32(exp.abs().max().item())))
+
+
+def _broken_compiles(cache):
+    def hook(label):
+        raise RuntimeError(f"compile broken: {label}")
+    cache.compile_hook = hook
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_shape", [(128, 128), (24, 40)])
+def test_reference_rung_equals_kernel_bitwise(cuda_device, tile_shape):
+    """Every compile broken: the reference rung serves each frame on the
+    card, bit for bit what the strict engine's kernel serves."""
+    reqs = [FrameRequest(rid=i, pipeline=NAMES[i % len(NAMES)],
+                         frames={"in": _frames(70 + i, 1, 40, 72)[0]})
+            for i in range(2 * len(NAMES))]
+    strict = FrameEngine(max_batch=2, tile_shape=tile_shape,
+                         device=cuda_device).run(reqs)
+    eng = FrameEngine(max_batch=2, tile_shape=tile_shape,
+                      device=cuda_device,
+                      resilience=ResilienceConfig(
+                          retry=RetryPolicy(max_attempts=1),
+                          breaker_failures=1, breaker_reset_s=60.0))
+    _broken_compiles(eng.cache)
+    for r in reqs:
+        assert eng.submit(FrameRequest(rid=r.rid, pipeline=r.pipeline,
+                                       frames=r.frames)) is True
+    done = {}
+    while eng.pending:
+        done.update({c.rid: c for c in eng.step()})
+    for r in reqs:
+        c = done[r.rid]
+        assert c.rung == "reference" and c.output.device.type == "cuda"
+        assert torch.equal(c.output, strict[r.rid]), r.pipeline
+    assert eng.metrics.fallback_frames == len(reqs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,chunk", [("tmotion-t", 4),
+                                        ("tbackground-t", 4),
+                                        ("tinternal", 1)])
+def test_state_from_history_resumes_compiled_stream(cuda_device, name,
+                                                    chunk):
+    """A blackout mid-stream: the reference rung rebuilds the frame
+    rings from the host history, and the kernel resumes from them. Input
+    producers' rings equal the strict stream's bit for bit; internal
+    temporal producers' within 32 ULP; the whole stream within 32 ULP of
+    the plain version's."""
+    pipes = {name: _tinternal} if name == "tinternal" else None
+    h, w = 37, 53
+    vid = _frames(80, 6 * chunk, h, w)
+    strict = VideoEngine(chunk=chunk, device=cuda_device,
+                         cache=PlanCache(pipelines=pipes,
+                                         device=cuda_device))
+    eng = VideoEngine(chunk=chunk, device=cuda_device,
+                      cache=PlanCache(pipelines=pipes, device=cuda_device),
+                      resilience=ResilienceConfig(
+                          retry=RetryPolicy(max_attempts=1),
+                          breaker_failures=1, breaker_reset_s=0.0))
+    a, b = strict.open_stream(name, h, w), eng.open_stream(name, h, w)
+    dag = eng.cache.dag_for(name)
+    inputs = set(dag.input_stages())
+    outs, rungs = [], []
+    for t in range(0, len(vid), chunk):
+        if t == 2 * chunk:
+            _broken_compiles(eng.cache)
+            eng.cache.evict_executors()
+        elif t == 4 * chunk:
+            eng.cache.compile_hook = None
+        for f in vid[t:t + chunk]:
+            assert strict.submit(VideoFrame(a, {"in": f}))
+            assert eng.submit(VideoFrame(b, {"in": f})) is True
+        strict.step()
+        got = eng.step()
+        outs += [c.output for c in got]
+        rungs += [c.rung for c in got]
+        for p, ring in eng._sessions[b].state.items():
+            want = strict._sessions[a].state[p]
+            assert ring.device.type == "cuda" and ring.shape == want.shape
+            if p in inputs:
+                assert torch.equal(ring, want), (t, p)
+            else:
+                assert _ulp(ring, want) <= 32, (t, p)
+    assert rungs == ["default"] * 2 * chunk + ["reference"] * 2 * chunk \
+        + ["default"] * 2 * chunk
+    exp = algorithms.execute_reference_video(
+        dag, {"in": torch.from_numpy(vid).to(cuda_device)})
+    assert _ulp(torch.stack(outs), exp) <= 32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wedge", ["after_launch", "before_launch"])
+def test_timed_out_k1_launch_leaves_next_rung_intact(cuda_device, wedge):
+    """An attempt that launches K1 and wedges (or wedges, then launches
+    after the ladder moved on) times out; the reference rung's output
+    is returned, and the abandoned launch, run to its end, changes none
+    of it. The attempt ran on its caller's card and stream."""
+    sp._lib()                       # build the library outside the timer
+    release, finished = threading.Event(), threading.Event()
+    seen = {}
+
+    class Wedged:
+        def __init__(self, ex):
+            self.ex = ex
+
+        def __call__(self, inputs):
+            seen["stream"] = torch.cuda.current_stream()
+            if wedge == "before_launch":
+                release.wait(10.0)
+            out = self.ex(inputs)           # one K1 launch
+            if wedge == "after_launch":
+                release.wait(10.0)
+            finished.set()
+            return out
+
+        def __getattr__(self, attr):
+            return getattr(self.ex, attr)
+
+    eng = FrameEngine(max_batch=2, tile_shape=(256, 256),
+                      device=cuda_device,
+                      resilience=ResilienceConfig(retry=RetryPolicy(
+                          max_attempts=1, timeout_s=0.5)))
+    eng.cache.executor_wrapper = Wedged
+    frames = _frames(90, 2, 128, 160)
+    for i in range(2):
+        assert eng.submit(FrameRequest(rid=i, pipeline="harris-m",
+                                       frames={"in": frames[i]})) is True
+    side = torch.cuda.Stream()
+    before = sp.stencil_pipeline.launches
+    with torch.cuda.stream(side):
+        done = eng.step()
+    assert [c.rung for c in done] == ["reference"] * 2
+    kept = [c.output.clone() for c in done]
+    release.set()
+    assert finished.wait(60.0)
+    torch.cuda.synchronize()
+    assert sp.stencil_pipeline.launches == before + 1
+    assert seen["stream"] == side
+    dag = eng.cache.dag_for("harris-m")
+    for i, c in enumerate(done):
+        assert torch.equal(c.output, kept[i])
+        exp = sp.stencil_pipeline_plain(dag, {"in": torch.from_numpy(
+            frames[i]).to(cuda_device)})
+        assert torch.equal(c.output, exp)
+
+
+@pytest.mark.cuda
+def test_chaos_executor_forwards_on_the_card(cuda_device):
+    cache = PlanCache(device=cuda_device)
+    install_chaos(cache, ChaosMonkey(seed=0))
+    ex = cache.video_executor_for("tmotion-t", 37, 53, chunk=4)
+    real = ex._ex
+    for attr in ("smem_bytes", "plan", "chunk", "device", "dag",
+                 "frame_state_bytes"):
+        assert getattr(ex, attr) == getattr(real, attr), attr
+    assert ex.device.type == "cuda" and ex.smem_bytes > 0
+    x = torch.from_numpy(_frames(91, 4, 37, 53)).to(cuda_device)
+    state = real.init_state()
+    before = sp.stencil_pipeline.launches
+    out, new = ex({"in": x}, state)
+    want, want_new = real({"in": x}, state)
+    torch.cuda.synchronize()
+    assert sp.stencil_pipeline.launches == before + 2
+    assert torch.equal(out, want)
+    assert all(torch.equal(new[p], want_new[p]) for p in want_new)
+    fx = cache.executor_for("unsharp-m", 37, 53, batch=2)
+    assert fx.smem_bytes == fx._ex.smem_bytes and fx.plan is fx._ex.plan
 
 
 @pytest.mark.cuda

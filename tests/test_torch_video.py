@@ -31,7 +31,8 @@ from repro_torch.core.ilp import build_problem, solve_schedule
 from repro_torch.imaging import FrameEngine, FrameRequest, PlanCache
 from repro_torch.kernels import ref
 from repro_torch.kernels import stencil_pipeline as sp
-from repro_torch.resilience import CancelledFrame
+from repro_torch.resilience import (CancelledFrame, RejectedFrame,
+                                    ResilienceConfig)
 from repro_torch.video import VideoEngine, VideoFrame
 
 VIDEO = sorted(algorithms.VIDEO_ALGORITHMS)
@@ -457,8 +458,12 @@ def test_engine_cancel_and_failure(cache, monkeypatch):
 
 
 def test_engine_refuses_resilient_mode_and_needs_a_card():
-    with pytest.raises(NotImplementedError, match="resilient"):
-        VideoEngine(resilience=object(), device="cpu")
+    # resilient mode is ported: a frame for an unknown stream comes back
+    # as a structured rejection instead of raising
+    eng = VideoEngine(resilience=ResilienceConfig(), device="cpu")
+    rej = eng.submit(VideoFrame(99, {"in": _video(36, t=1)[0]}))
+    assert isinstance(rej, RejectedFrame) and not rej
+    assert rej.reason == "unknown_stream"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             VideoEngine()
