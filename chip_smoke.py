@@ -82,10 +82,28 @@ inputs. Each phase prints one JSON line:
                the p50/p99 latency of (a) against the strict engine's,
                the reference rung's time per frame and the time to
                rebuild the 7 executors after an eviction storm;
- 12. kernels — one line per kernel path: route, source, launches, error
+ 12. perf    — the perf lab and the memory trace at 1080p, R=8: for the
+               7 spatial pipelines (B=4, prefetch depths 1 and 2) and the
+               4 video pipelines (chunk 4) the analytic model
+               (``perf.model.predict``), ``perf.measure.measure_executor``
+               on the cache's executors (16 frames each; the last output
+               against the plain version), the counted launch cost, the
+               card's peaks calibrated and from the data sheet, and two
+               ``perf_report/v1`` reports (depths 1 and 2) that must
+               validate, printed as tables; a traced ``FrameEngine``
+               burst over the 7 pipelines whose ``step_breakdown`` gives
+               every one a time split summing to exactly 1.0; a
+               ``memtrace/v1`` per pipeline and depth at the served shape
+               (in worker processes), each valid and holding the served
+               program's shared-memory ring bytes, merged onto the
+               burst's trace; a ledger row appended to a temporary file
+               and read back, the run gated against itself (quiet) and
+               against a re-measure with an injected 2x slowdown (must
+               fire);
+ 13. kernels — one line per kernel path: route, source, launches, error
                and times (the K1 entries with device time, registers,
                spill bytes, shared memory and CTAs per SM, and their
-               launches in the resilient run).
+               launches in the resilient run and in the perf phase).
 
 Tolerance: bitwise (0 ULP) for the stencil kernel at every depth and for
 conv2d, and for every frame the resilient engines serve fault free or
@@ -106,7 +124,6 @@ from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -116,6 +133,10 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+# the card's name and data-sheet peaks (the bounds' one home), the gate's
+# bands
+from repro_torch.perf.ledger import Band  # noqa: E402
+from repro_torch.perf.measure import card_info, datasheet_peaks  # noqa: E402
 # per call (CUDA events) and device (profiler) milliseconds
 from repro_torch.perf.timing import device_ms  # noqa: E402
 from repro_torch.perf.timing import event_ms as cuda_ms  # noqa: E402
@@ -151,6 +172,20 @@ SOAK_DEADLINE_S = 0.25          # the SLO rules' p99 queue-wait bound
 SOAK_RATES = dict(compile=0.2, executor=0.1, nan_frame=0.1,
                   shape_frame=0.08, dtype_frame=0.08, evict_storm=0.1,
                   churn=0.15)
+# perf phase: frames each executor is timed over (32 calls at B=4 or
+# chunk 4), the un-timed settling calls before them, the stream's seed, the
+# injected slowdown of the gate's negative control, and the gate's bands
+# (ratio current/baseline; the JAX package's perf lab's): the model's
+# metrics are pure functions of the plans and gate exactly, throughput
+# widely
+PERF_FRAMES, PERF_SETTLE, PERF_SEED, PERF_SLOWDOWN = 128, 2, 5, 2.0
+PERF_BANDS = [Band("predicted_cycles_total", 1.0, 1.0),
+              Band("model_bytes_total", 1.0, 1.0),
+              Band("smem_ring_bytes_total", 1.0, 1.0),
+              Band("alloc_bits_total", 1.0, 1.0),
+              Band("power_total", 0.999, 1.001),
+              Band("throughput_norm", 0.2, 5.0)]
+INJECT_BANDS = [Band("fps_geomean", 1 / 1.4, 1.4)]
 
 
 def emit(phase: str, **fields) -> None:
@@ -159,18 +194,6 @@ def emit(phase: str, **fields) -> None:
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: {msg}")
-
-
-def peak_rates(name: str) -> tuple[float, float]:
-    """(device-memory bytes/s, float32 non-tensor-core FLOP/s) of the
-    card, from NVIDIA's data sheets (dense, at the full power limit)."""
-    if "H200" in name:
-        return 4.8e12, 67e12
-    if "PCIe" in name:
-        return 2.0e12, 51e12
-    if "NVL" in name:
-        return 3.9e12, 60e12
-    return 3.35e12, 67e12                     # H100 SXM (80GB HBM3)
 
 
 def frames(seed: int, n: int, h: int, w: int) -> np.ndarray:
@@ -1063,6 +1086,310 @@ def resilience_phase(dev) -> dict:
             "prefetch": sum(launches[2])}
 
 
+def _memtrace_job(job: tuple[str, int]) -> dict:
+    """One ``PlanCache.memtrace_for`` at the served shape, in a worker
+    process: the cycle sampler is host work (1-3 s a 1080p pipeline) and
+    touches no device."""
+    from repro_torch.imaging import PlanCache
+    name, depth = job
+    return PlanCache(device="cpu").memtrace_for(
+        name, SERVE_W, SERVE_H, rows_per_step=SERVE_R,
+        prefetch_depth=depth)
+
+
+def perf_phase(dev, kind: str) -> dict:
+    """Phase 12: the perf lab and the memory trace at 1080p, R=8. Returns
+    the K1 launches of the phase by instantiation."""
+    import math
+    import multiprocessing
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+
+    from repro_torch.core import algorithms
+    from repro_torch.imaging import FrameEngine, FrameRequest, PlanCache
+    from repro_torch.kernels import stencil_pipeline as sp
+    from repro_torch.obs import export, trace
+    from repro_torch.obs.memtrace import memtrace_text, validate_memtrace
+    from repro_torch.perf import attribution, ledger, measure
+    from repro_torch.perf import model as perf_model
+
+    names = sorted(algorithms.ALGORITHMS)
+    video = sorted(algorithms.VIDEO_ALGORITHMS)
+    kern = sp.stencil_pipeline
+    cache = PlanCache(device=dev)
+    t_phase = time.perf_counter()
+
+    # ----------------------------------------------------------- peaks
+    t0 = time.perf_counter()
+    peaks = measure.calibrate(dev)
+    calibrate_s = time.perf_counter() - t0
+    sheet = measure.datasheet_peaks(kind)
+    for v in (peaks.flops_per_s, peaks.hbm_bytes_per_s):
+        if not (math.isfinite(v) and v > 0):
+            fail(f"calibrated peaks {peaks.to_dict()} are not finite and "
+                 f"positive")
+    card = measure.card_info()
+
+    # ------------------------------------------------------- measure
+    # K1 launches of the phase: K1d's where the prefetch instantiation
+    # launched, K1a/K1b's and K1c's the rest, by the executor's kind
+    launches = {"spatial": 0, "temporal": 0, "prefetch": 0}
+    kern.launches = kern.prefetch_launches = 0
+
+    def count(key: str, run):
+        before, before_pf = kern.launches, kern.prefetch_launches
+        out = run()
+        torch.cuda.synchronize()
+        prefetch = kern.prefetch_launches - before_pf
+        launches["prefetch"] += prefetch
+        launches[key] += kern.launches - before - prefetch
+        return out
+
+    def executor(name: str, depth: int):
+        if name in video:
+            return cache.video_executor_for(
+                name, SERVE_H, SERVE_W, chunk=VIDEO_CHUNK,
+                rows_per_step=SERVE_R, prefetch_depth=depth)
+        return cache.executor_for(name, SERVE_H, SERVE_W, batch=SERVE_B,
+                                  rows_per_step=SERVE_R,
+                                  prefetch_depth=depth)
+
+    def measured(ex, sleep_s: float = 0.0):
+        before = dict(launches)
+        inst = "temporal" if ex.dag.name in video else "spatial"
+        meas = count(inst, lambda: measure.measure_executor(
+            ex, PERF_FRAMES, np.random.RandomState(PERF_SEED),
+            settle=PERF_SETTLE, per_frame_sleep_s=sleep_s))
+        # the settling calls and one for each call of the timed stream,
+        # all of the instantiation the executor's program selects
+        want = dict.fromkeys(launches, 0)
+        want["prefetch" if ex.program.prefetch_depth > 1 else inst] = \
+            PERF_SETTLE + PERF_FRAMES // (
+                ex.batch if hasattr(ex, "batch") else ex.chunk)
+        got = {k: launches[k] - before[k] for k in launches}
+        if got != want:
+            fail(f"{ex.dag.name} at prefetch depth "
+                 f"{ex.program.prefetch_depth}: measure_executor launched "
+                 f"{got}, not {want}")
+        return meas
+
+    cells = {}             # (name, depth) -> (model, measured, executor)
+    max_err, max_ulp = 0.0, 0.0
+    jobs = [(n, 1) for n in names] + [(n, 2) for n in names] \
+        + [(n, 1) for n in video]
+    t0 = time.perf_counter()
+    for name, depth in jobs:
+        ex = executor(name, depth)
+        plan = cache.plan_for(name, SERVE_W, rows_per_step=SERVE_R,
+                              prefetch_depth=depth)
+        meas = measured(ex)
+        inputs, state, out = meas.last
+        ins = {k: torch.from_numpy(v).to(dev) for k, v in inputs.items()}
+        if state is None:
+            exp = sp.stencil_pipeline_plain(ex.dag, ins)
+        else:
+            exp, _ = sp.video_pipeline_plain(ex.dag, {
+                **ins, **sp.tap_feeds(ex.dag, ins, state, VIDEO_CHUNK)})
+        err, ulp = ulp_err(out, exp)
+        if ulp > TOLERANCE_ULP:
+            fail(f"perf {name} depth {depth}: measured output differs from "
+                 f"plain by {ulp} ULP")
+        max_err, max_ulp = max(max_err, err), max(max_ulp, ulp)
+        cells[(name, depth)] = (perf_model.predict(plan, SERVE_H), meas, ex)
+    measure_s = time.perf_counter() - t0
+
+    # ------------------------------------------- traced serving burst
+    reqs = [FrameRequest(rid=i, pipeline=names[i % len(names)],
+                         frames={"in": frames(5000 + i, 1, SERVE_H,
+                                              SERVE_W)[0]})
+            for i in range(SERVE_B * len(names))]
+    eng = FrameEngine(cache=cache, max_batch=SERVE_B, rows_per_step=SERVE_R,
+                      tile_shape=(SERVE_H, SERVE_W))
+    trace.clear()
+    trace.enable()
+    try:
+        served = count("spatial", lambda: eng.run(reqs))
+        burst = export.to_chrome_trace(trace.events())
+    finally:
+        trace.disable()
+        trace.clear()
+    for r in reqs:
+        x = torch.from_numpy(r.frames["in"]).to(dev)
+        err, ulp = ulp_err(served[r.rid], sp.stencil_pipeline_plain(
+            cache.dag_for(r.pipeline), {"in": x}))
+        if ulp > TOLERANCE_ULP:
+            fail(f"perf burst frame {r.rid} differs from plain by {ulp} ULP")
+    breakdowns = {}
+    for name in names:
+        breakdowns[name] = measure.step_breakdown(burst, name)
+        if breakdowns[name] is None:
+            fail(f"the traced burst holds no engine.step of {name}")
+
+    # --------------------------------------------------------- reports
+    config = {**card, "peaks_source": "calibrated",
+              "datasheet_peaks": sheet.to_dict(), "h": SERVE_H,
+              "w": SERVE_W, "rows_per_step": SERVE_R, "batch": SERVE_B,
+              "chunk": VIDEO_CHUNK, "frames": PERF_FRAMES,
+              "seed": PERF_SEED}
+    reports = {}
+    for depth in (1, 2):
+        pairs = [(k[0], *cells[k][:2]) for k in cells if k[1] == depth]
+        clock = attribution.effective_clock_hz([p[1:] for p in pairs])
+        entries = [attribution.attribute(
+            m, meas, clock, peaks,
+            breakdown=breakdowns.get(name) if depth == 1 else None)
+            for name, m, meas in pairs]
+        rep = attribution.build_report(
+            entries, {**config, "prefetch_depth": depth}, peaks, clock)
+        errs = attribution.validate_perf_report(rep)
+        if errs:
+            fail(f"perf_report at depth {depth} invalid: {errs[:3]}")
+        for e in rep["pipelines"]:
+            tf = e.get("time_fractions")
+            if depth == 1 and e["pipeline"] in names and (
+                    not tf or math.fsum(tf.values()) != 1.0):
+                fail(f"{e['pipeline']}: time fractions {tf} do not sum "
+                     f"to 1.0")
+        reports[depth] = rep
+        print(f"perf_report prefetch_depth={depth} ({card['nvidia_smi']}, "
+              f"calibrated peaks)", flush=True)
+        print(attribution.perf_text(rep), flush=True)
+
+    # -------------------------------------------------- memory traces
+    t0 = time.perf_counter()
+    mt_jobs = [(n, 1) for n in names] + [(n, 2) for n in names] \
+        + [(n, 1) for n in video]
+    workers = min(len(mt_jobs), os.cpu_count() or 1, 8)
+    with ProcessPoolExecutor(
+            max_workers=workers,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        traces = dict(zip(mt_jobs, pool.map(_memtrace_job, mt_jobs)))
+    memtrace_s = time.perf_counter() - t0
+    waste = {}
+    for (name, depth), mt in traces.items():
+        errs = validate_memtrace(mt)
+        if errs:
+            fail(f"memtrace {name} depth {depth} invalid: {errs[:3]}")
+        prog = cells[(name, depth)][2].program
+        ring_bytes = int(prog.table[sp.H_OSTAGE]) * 4
+        s = mt["summary"]
+        if s["smem_ring_bytes"] != ring_bytes or \
+                s["prefetch_ring_bytes"] != prog.prefetch_bytes:
+            fail(f"memtrace {name} depth {depth}: rings "
+                 f"{s['smem_ring_bytes']} B (prefetch "
+                 f"{s['prefetch_ring_bytes']}), the served program "
+                 f"reserves {ring_bytes} B ({prog.prefetch_bytes})")
+        waste[f"{name}@d{depth}"] = {
+            k: s[k] for k in ("smem_ring_bytes", "prefetch_ring_bytes",
+                              "tap_ring_bytes", "alloc_bytes",
+                              "peak_bytes", "waste_frac",
+                              "worst_port_pressure", "conflict_cycles")}
+        lines = [b["waste"] for b in mt["buffers"]
+                 if b["kind"] == "line_buffer"]
+        waste[f"{name}@d{depth}"].update(
+            # the line rings alone (frame rings, full device-memory
+            # frames, dominate a video trace's totals)
+            line_ring_waste_frac=1.0 - sum(w["peak_bytes"] for w in lines)
+            / sum(w["alloc_bytes"] for w in lines),
+            ringless_buffers=[
+                b["name"] for b in mt["buffers"]
+                if b["kind"] == "line_buffer" and b["ring"] is None])
+    merged = export.merge_counter_tracks(burst, list(traces.values()))
+    errs = export.validate_trace(merged)
+    if errs:
+        fail(f"burst trace with memtrace counters invalid: {errs[:3]}")
+    print(memtrace_text(traces[("canny-m", 1)]), flush=True)
+
+    # ---------------------------------------------------------- ledger
+    def metrics_of(fps: list[float]) -> dict:
+        fps_geomean = math.exp(sum(map(math.log, fps)) / len(fps))
+        d1 = [cells[k][0] for k in cells if k[1] == 1]
+        s = reports[1]["summary"]
+        return {
+            "predicted_cycles_total": sum(m.cycles_per_frame for m in d1),
+            "model_bytes_total": sum(m.bytes_per_frame for m in d1),
+            "smem_ring_bytes_total": sum(
+                traces[k]["summary"]["smem_ring_bytes"] for k in traces
+                if k[1] == 1),
+            "alloc_bits_total": sum(m.alloc_bits for m in d1),
+            "power_total": sum(m.power_total for m in d1),
+            "fps_geomean": fps_geomean,
+            "throughput_norm": fps_geomean / (peaks.flops_per_s / 1e9),
+            "efficiency_geomean": s["efficiency_geomean"],
+            "bytes_amplification_geomean":
+                s["bytes_amplification_geomean"]}
+
+    clean = metrics_of([cells[k][1].fps for k in cells if k[1] == 1])
+    t0 = time.perf_counter()
+    slowed = []
+    for k in [k for k in cells if k[1] == 1]:
+        _, meas, ex = cells[k]
+        calls = meas.frames // (ex.batch if k[0] in names else ex.chunk)
+        stall = (PERF_SLOWDOWN - 1.0) * meas.wall_s / calls
+        slowed.append(measured(ex, sleep_s=stall).fps)
+    inject_s = time.perf_counter() - t0
+    injected = metrics_of(slowed)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "perf_ledger.jsonl")
+        rows = [ledger.make_row("perf", PERF_SEED, config, m)
+                for m in (clean, injected)]
+        for row in rows:
+            if ledger.validate_row(row):
+                fail(f"ledger row invalid: {ledger.validate_row(row)}")
+            ledger.append_row(path, row)
+        if ledger.read_ledger(path) != rows:
+            fail("the ledger did not read back the rows appended")
+    quiet = ledger.gate(clean, clean, PERF_BANDS + INJECT_BANDS)
+    if quiet:
+        fail(f"the run gated against itself fired: {quiet}")
+    fired = ledger.gate(clean, injected, INJECT_BANDS)
+    if not fired:
+        fail(f"a {PERF_SLOWDOWN}x injected slowdown did not fire the gate "
+             f"(fps geomean {clean['fps_geomean']} -> "
+             f"{injected['fps_geomean']})")
+
+    if sum(launches.values()) != kern.launches or \
+            launches["prefetch"] != kern.prefetch_launches:
+        fail(f"the phase's K1 launches {launches} do not add up to the "
+             f"wrapper's {kern.launches} ({kern.prefetch_launches} "
+             f"prefetch)")
+    per = {}
+    for (name, depth), (m, meas, ex) in cells.items():
+        e = next(x for x in reports[depth]["pipelines"]
+                 if x["pipeline"] == name)
+        tf = e.get("time_fractions")
+        per[f"{name}@d{depth}"] = {
+            "cycles_per_frame": m.cycles_per_frame,
+            "predicted_fps": e["predicted_fps"], "fps": meas.fps,
+            "wall_s": meas.wall_s, "frames": meas.frames,
+            "efficiency": e["efficiency"],
+            "bytes_x": e["bytes_amplification"],
+            "bytes_x_hbm": meas.bytes_per_frame / m.hbm_bytes_per_frame,
+            "model_bound": m.bound, "bound": e["roofline"]["bound"],
+            "time_fractions": tf or None}
+    emit("perf", shape=[SERVE_H, SERVE_W], rows_per_step=SERVE_R,
+         batch=SERVE_B, chunk=VIDEO_CHUNK, frames=PERF_FRAMES,
+         nvidia_smi=card["nvidia_smi"],
+         peaks={"calibrated": peaks.to_dict(), "datasheet": sheet.to_dict(),
+                "calibrated_over_datasheet": {
+                    "flops": peaks.flops_per_s / sheet.flops_per_s,
+                    "bytes": peaks.hbm_bytes_per_s / sheet.hbm_bytes_per_s},
+                "seconds": calibrate_s},
+         clock_hz={d: reports[d]["clock_hz"] for d in reports},
+         summary={d: reports[d]["summary"] for d in reports},
+         per_pipeline=per, memtrace=waste,
+         memtrace_workers=workers, merged_trace_events=len(
+             merged["traceEvents"]),
+         gate={"clean": clean, "injected": injected, "fired": fired,
+               "slowdown": PERF_SLOWDOWN},
+         launches=launches, max_abs_err=max_err, max_ulp=max_ulp,
+         tolerance_ulp=TOLERANCE_ULP,
+         seconds={"measure": measure_s, "memtrace": memtrace_s,
+                  "inject": inject_s,
+                  "phase": time.perf_counter() - t_phase})
+    return launches
+
+
 def _registers(lib: str, pattern: str) -> dict | None:
     """ptxas's registers and spill bytes of the one entry function of
     library ``lib`` whose mangled name holds ``pattern``."""
@@ -1313,17 +1640,15 @@ def main() -> None:
     # ---------------------------------------------------------- 1. device
     kind = torch.cuda.get_device_name(0)
     cap = torch.cuda.get_device_capability(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
+    smi = card_info()["nvidia_smi"]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     emit("device", kind=kind, capability=list(cap), sms=sms,
          count=torch.cuda.device_count(), nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda)
     if cap != (9, 0):
         fail(f"compute capability {cap}, the kernels are built for sm_90a")
-    mem_rate, flop_rate = peak_rates(kind)
+    sheet = datasheet_peaks(kind)
+    mem_rate, flop_rate = sheet.hbm_bytes_per_s, sheet.flops_per_s
 
     # ----------------------------------------------------------- 2. build
     t0 = time.perf_counter()
@@ -1478,7 +1803,10 @@ def main() -> None:
     # ---------------------------------------------------- 11. resilience
     res = resilience_phase(dev)
 
-    # --------------------------------------------------- 12. kernels line
+    # ---------------------------------------------- 12. perf and memtrace
+    perf = perf_phase(dev, kind)
+
+    # --------------------------------------------------- 13. kernels line
     share: dict[str, float] = {}
     for p in per.values():
         share[p["bound_by"]] = share.get(p["bound_by"], 0.0) + p["bound_ms"]
@@ -1487,6 +1815,7 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/stencil_pipeline.cu",
         "replaces": "src/repro/kernels/stencil_pipeline.py:423",
         "launches": launches, "launches_resilience": res["spatial"],
+        "launches_perf": perf["spatial"],
         "max_abs_err": max_err, "max_ulp": max_ulp,
         "ms": sum(p["ms"] for p in per.values()),
         "device_ms": sum(p["device_ms"] for p in per.values()),
@@ -1506,6 +1835,7 @@ def main() -> None:
                          ":631-688)",
         "launches": k1c["launches"],
         "launches_resilience": res["temporal"],
+        "launches_perf": perf["temporal"],
         "max_abs_err": max(k1c_err, k1c["max_abs_err"]),
         "max_ulp": max(k1c_ulp, k1c["max_ulp"]), "ms": k1c["ms"],
         "device_ms": k1c["device_ms"],
@@ -1521,6 +1851,7 @@ def main() -> None:
         "replaces_part": "prefetch_depth >= 2 rings (:319-421)",
         "launches": k1d["launches"],
         "launches_resilience": res["prefetch"],
+        "launches_perf": perf["prefetch"],
         "max_abs_err": k1d["max_abs_err"],
         "max_ulp": k1d["max_ulp"], "ms": k1d["ms"],
         **{k: k1d[k] for k in ("device_ms", "device_ms_depth1",

@@ -19,9 +19,11 @@ survivors, and scores each on three axes:
 
 This module is a copy of the JAX package's autotuner, so a search's
 winner, Pareto set and depth axis equal the reference's. Its VMEM
-scores and the ``DMA_BYTES_PER_CYCLE`` roofline are the reference's TPU
-planner arithmetic, not measurements of a card: the CUDA kernel sizes
-its shared-memory rings itself (``kernels/stencil_pipeline.py``).
+scores are the reference's TPU planner arithmetic, not measurements of
+a card: the CUDA kernel sizes its shared-memory rings itself
+(``kernels/stencil_pipeline.py``). The depth axis classifies a pipeline
+DMA-bound against the perf model's ``DMA_BYTES_PER_CYCLE``, the modeled
+accelerator's interface width (``perf/model.py``).
 
 The result is a ranked :class:`TuningResult`: ``best`` minimizes
 (vmem bytes, power, area) lexicographically, and ``pareto()`` is the
@@ -43,8 +45,7 @@ from typing import Mapping, Sequence
 
 from repro_torch.obs import trace
 
-from .codegen import (PipelinePlan, compile_pipeline, probe_height,
-                      temporal_taps)
+from .codegen import PipelinePlan, compile_pipeline, probe_height
 from .contention import port_slack
 from .dag import PipelineDAG
 from .ilp import Schedule, build_problem, schedule_signature, solve_schedule
@@ -63,27 +64,6 @@ from .pruning import or_branch_count
 DPLC2 = MemConfig("DPLC2", ports=2, block_bits=DPLC.block_bits,
                   coalesce=True, pack_cap=2)
 TUNE_OPTIONS: tuple[MemConfig, ...] = (SP, DP, QP, DPLC, DPLC2)
-
-# The reference perf model's DMA rate (repro/perf/model.py): bytes a TPU
-# DMA engine moves per pixel-cycle of the analytic roofline. The depth
-# axis classifies a pipeline DMA-bound against it.
-DMA_BYTES_PER_CYCLE = 16
-BYTES_PER_PX = 4
-
-
-def _hbm_bytes(plan: PipelinePlan, h: int) -> int:
-    """Off-chip bytes per frame under the streaming executor's contract:
-    inputs, outputs, one history frame per temporal tap, and one frame
-    round trip per internal temporal producer."""
-    dag = plan.dag
-    px = h * plan.w * BYTES_PER_PX
-    n_inputs = len(dag.input_stages())
-    n_outputs = len(dag.output_stages())
-    inputs_set = set(dag.input_stages())
-    internal_ring_writes = sum(1 for p in plan.frame_depths
-                               if p not in inputs_set)
-    return px * (n_inputs + n_outputs + len(temporal_taps(dag))
-                 + internal_ring_writes)
 
 
 @dataclasses.dataclass
@@ -255,13 +235,16 @@ def _score_depths(plan: PipelinePlan, dag: PipelineDAG, w: int,
                   vmem_budget: int | None) -> tuple[str, int, list[dict]]:
     """(bound, best_depth, depth candidate rows) for the winning plan.
 
-    Uses the reference perf model's DMA accounting (:func:`_hbm_bytes`,
-    copied here), so the classification equals the reference's. The probe
+    Uses the perf model's DMA accounting so the classification here and
+    the prediction in perf_report/v1 can never disagree. The probe
     height is ``frame_h`` when the caller gave one (temporal tuning
     already carries it), else ``w`` — bound is height-invariant (both
     steady and DMA cycles scale with h), so any positive height ranks
     identically.
     """
+    # local import: perf.model depends on core; core.dse must not pull
+    # it in at module-import time
+    from repro_torch.perf.model import DMA_BYTES_PER_CYCLE, _hbm_bytes
     h = frame_h if frame_h > 0 else w
     steady = h * w
     fill = int(plan.schedule.starts[dag.output_stages()[0]])

@@ -338,6 +338,26 @@ class PlanCache:
                                                   chunk=chunk,
                                                   device=self.device))
 
+    def memtrace_for(self, name: str, w: int, h: int,
+                     mem: MemConfig | Mapping[str, MemConfig] | None = None,
+                     rows_per_step: int = 1, tune: bool = False,
+                     max_samples: int = 512,
+                     prefetch_depth: int = 1) -> dict:
+        """Cycle-level memory trace (``memtrace/v1``) for a cached plan.
+
+        Resolves the plan through the normal cache path (so the ILP is
+        never re-paid and tuned configs trace the tuned plan), then
+        plays one ``h``-row frame through the schedule sampler. The
+        artifact's waste columns join the shared-memory rings the
+        kernel reserves for the plan at this shape, so its
+        ``smem_ring_bytes`` equals the executors' ring bill.
+        """
+        from repro_torch.obs import memtrace as _memtrace
+        plan = self.plan_for(name, w, mem=mem, rows_per_step=rows_per_step,
+                             tune=tune, prefetch_depth=prefetch_depth)
+        with trace.span("cache.memtrace", pipeline=name, w=w, h=h):
+            return _memtrace.capture(plan, h, max_samples=max_samples)
+
     def evict_executors(self) -> int:
         """Drop every resident executor (plans and tunings stay). The
         cache-eviction-storm surface: the chaos harness calls this

@@ -190,6 +190,8 @@ class StencilProgram:
     temporal producers whose frames it writes beside the output.
     ``prefetch_bytes`` is the part of ``smem_bytes`` that the feed rings'
     grown rows take at ``prefetch_depth`` >= 2 (0 at depth 1).
+    ``rings`` names the table's rings in order: a producer's live ring,
+    or ``(producer, j)`` for its history tap j frames back.
     """
     dag: PipelineDAG
     h: int
@@ -207,6 +209,7 @@ class StencilProgram:
     smem_bytes: int
     prefetch_depth: int = 1
     prefetch_bytes: int = 0
+    rings: tuple = ()
 
 
 def _resident(smem: int) -> int:
@@ -444,7 +447,8 @@ def build_program(dag: PipelineDAG, h: int, w: int, rows_per_step: int,
                           band_h=band_h, grid_x=grid_x,
                           grid_y=-(-h // band_h), smem_bytes=smem,
                           prefetch_depth=prefetch_depth,
-                          prefetch_bytes=grown)
+                          prefetch_bytes=grown,
+                          rings=tuple(sorted(ring_idx, key=ring_idx.get)))
 
 
 def _payload_operands(pipeline: str, name: str, fn, ins, wts: list
@@ -517,6 +521,38 @@ def launch_work(program: StencilProgram, frames: int) -> tuple[int, int]:
     moved = (len(program.feeds) + 1 + len(program.frame_outs)) * frames \
         + history
     return moved * hw * 4, ops * frames * hw
+
+
+def launch_traffic(program: StencilProgram, frames: int) -> int:
+    """Bytes a launch over ``frames`` frames loads and stores as its
+    geometry dictates. Each CTA loads, per feed stage (an input, or a
+    history tap of its frame), the rows from its band's top halo to the
+    end of its last row group and its ``ncols`` columns from the strip's
+    left halo on, clipped to the frame; it stores its strip of its band
+    of the output and of each frame output. A one-strip, one-band
+    spatial program moves :func:`launch_work`'s bytes; more strips or
+    bands add their halos, and a temporal launch reads every history
+    tap of every frame (the L2 may serve repeated reads)."""
+    t = program.table
+    h, w, r = program.h, program.w, program.rows_per_step
+    strip, left, ncols = int(t[H_STRIP_W]), int(t[H_HALO_LEFT]), \
+        int(t[H_NCOLS])
+    band, up = int(t[H_BAND_H]), int(t[H_HALO_UP])
+    cols = 0
+    for x in range(program.grid_x):
+        cbase = x * strip - left
+        cols += min(cbase + ncols, w) - max(cbase, 0)
+    rows = 0
+    for y in range(program.grid_y):
+        y0 = y * band
+        rlo = max(y0 - up, 0)
+        steps = -(-(min(y0 + band, h) - rlo) // r)
+        rows += min(rlo + steps * r, h) - rlo
+    feed = KINDS.index("feed")
+    n_feeds = sum(int(t[HDR + s * STAGE_INTS + S_KIND]) == feed
+                  for s in range(int(t[H_NSTAGES])))
+    stores = (1 + len(program.frame_outs)) * h * w
+    return 4 * frames * (n_feeds * cols * rows + stores)
 
 
 def stencil_pipeline_plain(dag: PipelineDAG,

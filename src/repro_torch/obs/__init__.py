@@ -9,14 +9,21 @@ the live telemetry plane.
     Prometheus text exposition. Engine and cache metrics are backed by it.
   * :mod:`export <repro_torch.obs.export>` — Chrome/Perfetto
     ``trace_event`` JSON, a structural schema validator, a text flame
-    summary and the SLO view of a trace.
+    summary, the SLO view of a trace, and memtrace counter-track
+    rendering and merging.
+  * :mod:`memtrace <repro_torch.obs.memtrace>` — cycle-level
+    memory-system traces: per-buffer occupancy and port-pressure samples
+    from the schedule simulator, downsampled into schema-stamped
+    ``memtrace/v1`` artifacts, with allocation-vs-peak waste joined to
+    the shared-memory rings the CUDA kernel reserves.
   * :mod:`telemetry <repro_torch.obs.telemetry>` — a background
     collector sampling a registry into bounded time-series rings,
     declarative SLO burn-rate alert rules with firing/resolved
     transitions, and a stdlib HTTP endpoint (``/metrics``, ``/healthz``,
     ``/snapshot``).
 """
-from . import export, metrics, telemetry, trace
+from . import export, memtrace, metrics, telemetry, trace
+from .memtrace import MEMTRACE_SCHEMA
 from .metrics import (Counter, Gauge, Histogram, MetricsRegistry,
                       DEFAULT_TIME_BUCKETS, UNIT_BUCKETS,
                       escape_label_value, validate_metric_name)
@@ -27,8 +34,9 @@ from .trace import TraceEvent, Tracer
 
 __all__ = [
     "AlertRule", "AlertState", "Counter", "DEFAULT_TIME_BUCKETS", "Gauge",
-    "Histogram", "MetricsRegistry", "SeriesRing", "TELEMETRY_SCHEMA",
-    "TelemetryCollector", "TelemetryServer", "TraceEvent", "Tracer",
-    "UNIT_BUCKETS", "escape_label_value", "export", "default_slo_rules",
-    "metrics", "telemetry", "trace", "validate_metric_name",
+    "Histogram", "MEMTRACE_SCHEMA", "MetricsRegistry", "SeriesRing",
+    "TELEMETRY_SCHEMA", "TelemetryCollector", "TelemetryServer",
+    "TraceEvent", "Tracer", "UNIT_BUCKETS", "escape_label_value",
+    "export", "default_slo_rules", "memtrace", "metrics", "telemetry",
+    "trace", "validate_metric_name",
 ]

@@ -18,9 +18,9 @@ the tools that read timelines:
     containment), so "where did the milliseconds go" reads off the top
     row even when spans nest five deep.
   * :func:`memtrace_counter_events` / :func:`merge_counter_tracks` —
-    render a ``memtrace/v1`` artifact (the JAX package's obs.memtrace
-    schema; the port's capture waits for its perf layer) as Perfetto
-    **counter tracks** (``ph: "C"``) and lay them over the engine spans
+    render a ``memtrace/v1`` artifact (:mod:`repro_torch.obs.memtrace`,
+    the JAX package's schema) as Perfetto **counter tracks**
+    (``ph: "C"``) and lay them over the engine spans
     of an existing trace, so per-buffer occupancy and per-stage port
     pressure read on the same timeline as the wall-clock work.
 """

@@ -18,7 +18,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 
 import numpy as np
 import torch
@@ -26,6 +25,7 @@ import torch
 from repro_torch.core import algorithms
 from repro_torch.core.codegen import compile_pipeline
 from repro_torch.kernels import stencil_pipeline as sp
+from repro_torch.perf.measure import card_info
 
 STRIPS = (56, 120, 240, 496)
 TARGETS = (264, 528, 1056, 2112, 4224)
@@ -54,10 +54,7 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("geometry_sweep: no CUDA device")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    print(smi, flush=True)
+    print(card_info()["nvidia_smi"], flush=True)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     rng = np.random.RandomState(args.seed)
     for name in sorted(algorithms.ALGORITHMS):

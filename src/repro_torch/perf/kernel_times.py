@@ -17,7 +17,8 @@ shared memory and CTAs per SM of the launch, and a hash of the output,
 so two trees can also be checked for equal pixels. A last line holds
 ptxas's registers and spill bytes per instantiation and the sums. Uses
 only ``build_program``, the wrapper and ``blocks_per_sm``, whose
-signatures every tree of the port shares; ``--depth`` above 1 passes
+signatures every tree of the port shares, and ``perf.measure.card_info``,
+which trees with the perf lab have; ``--depth`` above 1 passes
 ``prefetch_depth``, which only trees with the prefetch kernel take.
 Needs an NVIDIA GPU; the card's name and power limit come first.
 """
@@ -26,7 +27,6 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
-import subprocess
 
 import numpy as np
 import torch
@@ -35,6 +35,7 @@ from repro_torch.core import algorithms
 from repro_torch.core.codegen import compile_pipeline
 from repro_torch.kernels import _build
 from repro_torch.kernels import stencil_pipeline as sp
+from repro_torch.perf.measure import card_info
 from repro_torch.perf.timing import device_ms, event_ms
 
 H, W, R, B = 1080, 1920, 8, 4
@@ -49,9 +50,7 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: no CUDA device")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
+    smi = card_info()["nvidia_smi"]
     print(json.dumps({"tag": args.tag, "nvidia_smi": smi}), flush=True)
     rng = np.random.RandomState(0)
     x = torch.from_numpy(rng.rand(B, H, W).astype(np.float32)).cuda()

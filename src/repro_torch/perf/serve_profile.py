@@ -19,7 +19,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import time
 
 import numpy as np
@@ -29,6 +28,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.core import algorithms
 from repro_torch.imaging import FrameEngine, FrameRequest
+from repro_torch.perf.measure import card_info
 from repro_torch.video import VideoEngine, VideoFrame
 
 H, W, B, R = 1080, 1920, 4, 8
@@ -103,9 +103,7 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("serve_profile: no CUDA device")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip(), flush=True)
+    print(card_info()["nvidia_smi"], flush=True)
     if args.video:
         names = sorted(algorithms.VIDEO_ALGORITHMS)
         engine = VideoEngine(device="cuda", chunk=B, rows_per_step=R)

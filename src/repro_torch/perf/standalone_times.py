@@ -47,6 +47,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import _build, conv2d_stencil
 from repro_torch.kernels import swa_decode as swa
+from repro_torch.perf.measure import card_info
 from repro_torch.perf.timing import device_ms, event_ms
 
 H, W = 1080, 1920
@@ -230,9 +231,7 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("standalone_times: no CUDA device")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
+    smi = card_info()["nvidia_smi"]
     _emit(nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
     torch.backends.cudnn.allow_tf32 = False       # float32 yardsticks
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -651,3 +651,81 @@ def test_device_clock_graph_replay_agrees_with_the_profiler(cuda_device):
     assert list(by_graph) == ["cuda graph replay"]
     assert any("conv2d_rows" in name for name in by_name)
     assert prof / 2 < graph < prof * 2
+
+
+@pytest.mark.cuda
+def test_calibrated_peaks_are_below_the_data_sheet(cuda_device):
+    """perf.measure.calibrate on the card: a 1 GiB device copy and an
+    8192^3 float32 product with TF32 off give finite, positive peaks
+    below the data sheet's (x1.05 for clock and rounding), and the TF32
+    switch comes back as it was."""
+    from repro_torch.perf import measure
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    peaks = measure.calibrate(cuda_device, reps=3)
+    assert torch.backends.cuda.matmul.allow_tf32 == tf32
+    sheet = measure.datasheet_peaks(torch.cuda.get_device_name(0))
+    for got, top in ((peaks.flops_per_s, sheet.flops_per_s),
+                     (peaks.hbm_bytes_per_s, sheet.hbm_bytes_per_s)):
+        assert np.isfinite(got) and 0 < got < 1.05 * top
+    info = measure.card_info()
+    assert info["device"] in info["nvidia_smi"]
+
+
+@pytest.mark.cuda
+def test_measure_executor_and_cost_at_1080p(cuda_device):
+    """perf.measure on a 1080p program the cache builds: the timed
+    stream launches the kernel once per call, its last output equals the
+    plain version bit for bit, and the counted launch bytes exceed
+    launch_work's minimum by the strips' and bands' halos."""
+    from repro_torch.perf import measure
+    cache = PlanCache(device=cuda_device)
+    for depth in (1, 2):
+        ex = cache.executor_for("canny-m", 1080, 1920, batch=4,
+                                rows_per_step=8, prefetch_depth=depth)
+        before = sp.stencil_pipeline.launches
+        meas = measure.measure_executor(ex, 8, np.random.RandomState(0))
+        assert sp.stencil_pipeline.launches - before == 2 + 2  # settle 2
+        assert meas.frames == 8 and meas.fps > 0
+        inputs, _, out = meas.last
+        exp = sp.stencil_pipeline_plain(
+            ex.dag, {"in": torch.from_numpy(inputs["in"]).to(cuda_device)})
+        assert torch.equal(out, exp)
+        cost = measure.executor_cost(ex)
+        nbytes, ops = sp.launch_work(ex.program, 4)
+        assert cost["flops"] == ops
+        assert nbytes < cost["bytes_accessed"] < 1.5 * nbytes
+    vex = cache.video_executor_for("tmotion-t", 1080, 1920, chunk=4,
+                                   rows_per_step=8)
+    meas = measure.measure_executor(vex, 8, np.random.RandomState(1))
+    inputs, state, out = meas.last
+    ins = {"in": torch.from_numpy(inputs["in"]).to(cuda_device)}
+    exp, _ = sp.video_pipeline_plain(
+        vex.dag, {**ins, **sp.tap_feeds(vex.dag, ins, state, 4)})
+    assert torch.equal(out, exp)
+
+
+@pytest.mark.cuda
+def test_memtrace_rings_reconcile_with_the_launched_program(cuda_device):
+    """A memtrace's shared-memory ring bytes are the launched program's
+    bill less its output block and row tables:
+    smem_bytes - (R * ncols + 2 * MAX_RINGS) * 4."""
+    cache = PlanCache(device=cuda_device)
+    for name, depth in (("harris-m", 1), ("harris-m", 2),
+                        ("tdenoise-t", 1)):
+        if name in VIDEO:
+            ex = cache.video_executor_for(name, 1080, 1920, chunk=4,
+                                          rows_per_step=8)
+            x = torch.rand((4, 1080, 1920), device=cuda_device)
+            ex({"in": x}, ex.init_state())
+        else:
+            ex = cache.executor_for(name, 1080, 1920, batch=4,
+                                    rows_per_step=8, prefetch_depth=depth)
+            ex({"in": torch.rand((4, 1080, 1920), device=cuda_device)})
+        torch.cuda.synchronize()
+        mt = cache.memtrace_for(name, 1920, 1080, rows_per_step=8,
+                                prefetch_depth=depth)
+        prog = ex.program
+        ncols = int(prog.table[sp.H_NCOLS])
+        assert mt["summary"]["smem_ring_bytes"] == prog.smem_bytes \
+            - (8 * ncols + 2 * sp.MAX_RINGS) * 4
+        assert mt["summary"]["prefetch_ring_bytes"] == prog.prefetch_bytes
