@@ -100,7 +100,30 @@ inputs. Each phase prints one JSON line:
                and read back, the run gated against itself (quiet) and
                against a re-measure with an injected 2x slowdown (must
                fire);
- 13. kernels — one line per kernel path: route, source, launches, error
+ 13. lm_serve — the LM serving stack (``repro_torch.models``,
+               ``repro_torch.serve``; no hand-written kernel lies on it):
+               (a) gemma3-1b at full config (26 layers, d 1152, vocab
+               262144, bf16), random weights from a seeded generator on
+               the card, served through ``Engine`` (4 slots of 1024
+               positions, 6 requests with prompts of 4-700 tokens, 32 new
+               tokens each, two sampled; the longest crosses the local
+               window of 512): the KV plan, parameters, weight bytes, peak
+               memory, prefill tokens/s, step times by active slots,
+               generated tokens/s, the decode step at 4 slots per call and
+               on the device against its bytes bound (the weights read
+               once over the calibrated bandwidth); (b) the same config in
+               float32: ``decode_step`` over a 600-token sequence against
+               ``forward`` (rtol 2e-4, atol 2e-4, the JAX package's bound
+               for it), and the engine's greedy tokens against a
+               hand-written ``decode_step`` loop; (c) a request's tokens
+               alone and with a second request admitted after its second
+               step, equal, its cache rows and state untouched bit for bit
+               (gemma3-1b, rwkv6-1.6b); (d) granite-moe-1b-a400m,
+               rwkv6-1.6b and recurrentgemma-2b at full config in bf16
+               through the engine (3 requests, 16 tokens each), and in
+               float32 with one super-block, decode against forward as in
+               (b); hubert-xlarge's forward on a (2, 256) batch, finite;
+ 14. kernels — one line per kernel path: route, source, launches, error
                and times (the K1 entries with device time, registers,
                spill bytes, shared memory and CTAs per SM, and their
                launches in the resilient run and in the perf phase).
@@ -137,6 +160,7 @@ import torch  # noqa: E402
 # bands
 from repro_torch.perf.ledger import Band  # noqa: E402
 from repro_torch.perf.measure import card_info, datasheet_peaks  # noqa: E402
+from repro_torch._device import synchronize  # noqa: E402
 # per call (CUDA events) and device (profiler) milliseconds
 from repro_torch.perf.timing import device_ms  # noqa: E402
 from repro_torch.perf.timing import event_ms as cuda_ms  # noqa: E402
@@ -186,6 +210,19 @@ PERF_BANDS = [Band("predicted_cycles_total", 1.0, 1.0),
               Band("power_total", 0.999, 1.001),
               Band("throughput_norm", 0.2, 5.0)]
 INJECT_BANDS = [Band("fps_geomean", 1 / 1.4, 1.4)]
+# lm_serve phase: gemma3-1b at full width and depth through the Engine (4
+# slots of 1024 positions; prompts of 4-700 tokens, the 700-token one and
+# its output cross the local window of 512; two requests sampled), the
+# decode-vs-forward sequence (past the window) and its bound, the JAX
+# package's (tests/test_models.py:95-97), and the other families at full
+# config
+LM_ARCH, LM_SEED = "gemma3-1b", 3
+LM_SLOTS, LM_MAX_LEN, LM_MAX_NEW = 4, 1024, 32
+LM_PROMPTS = (4, 700, 96, 260, 31, 480)
+LM_SAMPLED = (1, 4)
+LM_CHECK_LEN = 600
+LM_RTOL = LM_ATOL = 2e-4
+LM_OTHERS = ("granite-moe-1b-a400m", "rwkv6-1.6b", "recurrentgemma-2b")
 
 
 def emit(phase: str, **fields) -> None:
@@ -1390,6 +1427,287 @@ def perf_phase(dev, kind: str) -> dict:
     return launches
 
 
+# ----------------------------------------------------------- lm_serve phase
+def serve_timed(eng, reqs) -> tuple[dict, dict]:
+    """``Engine.run`` with a host clock around each admission (prefill,
+    which ends in a device sync) and each step (ends in one too)."""
+    pending = list(reqs)
+    results: dict[int, list[int]] = {}
+    prefill_s, prefill_tokens, steps = 0.0, 0, {}
+    t_all = time.perf_counter()
+    while pending or eng.active.any():
+        while pending:
+            t0 = time.perf_counter()
+            if not eng.add_request(pending[0]):
+                break
+            prefill_s += time.perf_counter() - t0
+            prefill_tokens += len(pending.pop(0).prompt)
+        n = int(eng.active.sum())
+        t0 = time.perf_counter()
+        results.update({c.rid: c.tokens for c in eng.step()})
+        steps.setdefault(n, []).append(time.perf_counter() - t0)
+    wall = time.perf_counter() - t_all
+    step_s = sum(sum(v) for v in steps.values())
+    stepped = sum(len(v) - 1 for v in results.values())
+    for r in reqs:
+        toks = results.get(r.rid)
+        if toks is None or len(toks) != r.max_new:
+            fail(f"request {r.rid} returned {toks!r}, not {r.max_new} tokens")
+        if not all(0 <= t < eng.cfg.vocab for t in toks):
+            fail(f"request {r.rid}: a token outside the vocabulary")
+    return results, {
+        "requests": len(reqs), "prefill_tokens": prefill_tokens,
+        "prefill_s": prefill_s,
+        "prefill_tokens_per_s": prefill_tokens / prefill_s,
+        "steps": sum(len(v) for v in steps.values()),
+        "step_ms_by_active_slots": {
+            str(n): {"median": float(np.median(v)) * 1e3,
+                     "min": min(v) * 1e3, "count": len(v)}
+            for n, v in sorted(steps.items())},
+        "generated_tokens": sum(len(v) for v in results.values()),
+        "decode_tokens_per_s": stepped / step_s,
+        "tokens_per_s": sum(len(v) for v in results.values()) / wall,
+        "wall_s": wall}
+
+
+def isolation(model, seed: int) -> dict:
+    """A request alone, then the same request with a second one admitted
+    after its second step: its tokens must be equal and the admission
+    must leave its cache rows and recurrent state bit for bit."""
+    from repro_torch.serve import Engine, Request
+    rng = np.random.RandomState(seed)
+    p0 = rng.randint(0, model.cfg.vocab, 12)
+    p1 = rng.randint(0, model.cfg.vocab, 40)
+    solo = Engine(model, 2, 256).run([Request(0, p0, 12)])[0]
+    eng = Engine(model, 2, 256)
+    eng.add_request(Request(0, p0, 12))
+    eng.step()
+    eng.step()
+    before = [t[:, 0].clone() for seg in eng.caches for sub in seg
+              for t in sub.values()]
+    eng.add_request(Request(1, p1, 8))
+    after = [t[:, 0] for seg in eng.caches for sub in seg
+             for t in sub.values()]
+    untouched = all(torch.equal(a, b) for a, b in zip(before, after))
+    res = {}
+    while eng.active.any():
+        res.update({c.rid: c.tokens for c in eng.step()})
+    if not untouched or res[0] != solo:
+        fail(f"{model.cfg.name}: admitting a second request moved the "
+             f"first (state untouched: {untouched}; tokens {res[0]} "
+             f"against {solo} alone)")
+    return {"tokens_alone": solo, "state_bit_for_bit": untouched}
+
+
+def decode_vs_forward(model, n: int, seed: int) -> dict:
+    """Token-by-token ``decode_step`` logits (the engine's step: a CUDA
+    graph of it, replayed) against ``forward`` over one ``n``-token
+    sequence (the JAX package's bound, LM_RTOL / LM_ATOL)."""
+    from repro_torch.serve.engine import DecodeStep
+    rng = np.random.RandomState(seed)
+    toks = torch.from_numpy(rng.randint(0, model.cfg.vocab, n)).to(
+        model.device)
+    pos = torch.arange(n, device=model.device)
+    t0 = time.perf_counter()
+    full, _ = model.forward({"tokens": toks[None]})
+    synchronize(model.device)
+    forward_s = time.perf_counter() - t0
+    step = DecodeStep(model, model.decode_init(1, n), 1)
+    max_err = torch.zeros((), device=model.device)
+    worst = torch.zeros((), device=model.device)   # |d| / (atol + rtol|f|)
+    t0 = time.perf_counter()
+    for t in range(n):
+        lg = step(toks[t:t + 1], pos[t:t + 1])
+        exp = full[0, t]
+        d = (lg[0] - exp).abs()
+        max_err = torch.maximum(max_err, d.max())
+        worst = torch.maximum(worst, (d / (LM_ATOL + LM_RTOL * exp.abs()))
+                              .max())
+    synchronize(model.device)
+    decode_s = time.perf_counter() - t0
+    out = {"tokens": n, "max_abs_err": float(max_err),
+           "max_err_over_bound": float(worst), "rtol": LM_RTOL,
+           "atol": LM_ATOL, "finite": bool(torch.isfinite(full).all()),
+           "forward_s": forward_s, "decode_ms_per_token": decode_s / n * 1e3}
+    if not out["finite"] or out["max_err_over_bound"] > 1.0:
+        fail(f"{model.cfg.name} ({model.cfg.dtype}, {model.cfg.n_layers} "
+             f"layers): decode against forward {out}")
+    return out
+
+
+def lm_serve_phase(dev, kind: str) -> None:
+    """Phase 13: the LM serving stack (``repro_torch.models``,
+    ``repro_torch.serve``) at full width on the card. No hand-written
+    kernel lies on this path (the JAX package's models reach none)."""
+    import dataclasses
+    import gc
+
+    from repro_torch.kernels import conv2d_stencil
+    from repro_torch.kernels import stencil_pipeline as sp
+    from repro_torch.kernels import swa_decode as swa
+    from repro_torch.models import build_model, get_config
+    from repro_torch.models.transformer import plan_segments
+    from repro_torch.perf import measure
+    from repro_torch.serve import Engine, Request
+    from repro_torch.serve.engine import DecodeStep
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counters = (sp.stencil_pipeline, conv2d_stencil.conv2d, swa.swa_decode)
+    launches0 = [c.launches for c in counters]
+    t_phase = time.perf_counter()
+    peaks = measure.calibrate(dev)
+    smi = card_info()["nvidia_smi"]
+
+    def gen(seed: int) -> torch.Generator:
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        return g
+
+    def release() -> None:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    # ------------------------------- (a) gemma3-1b, full config, bf16
+    release()
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, generator=gen(LM_SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    eng = Engine(model, n_slots=LM_SLOTS, max_len=LM_MAX_LEN, seed=LM_SEED)
+    rng = np.random.RandomState(LM_SEED)
+    reqs = [Request(rid=i, prompt=rng.randint(0, cfg.vocab, n),
+                    max_new=LM_MAX_NEW,
+                    temperature=0.8 if i in LM_SAMPLED else 0.0)
+            for i, n in enumerate(LM_PROMPTS)]
+    if max(LM_PROMPTS) + LM_MAX_NEW <= cfg.window:
+        fail("no request crosses the local window")
+    results, stats = serve_timed(eng, reqs)
+    # the decode step at 4 active slots: eager per call and on the device,
+    # and the engine's CUDA graph of it
+    caches = model.decode_init(LM_SLOTS, LM_MAX_LEN)
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab, LM_SLOTS)).to(dev)
+    pos = torch.tensor([700, 650, 300, 20], device=dev)
+
+    def step():
+        model.decode_step(caches, toks, pos)
+    step_ms = cuda_ms(step, iters=20)
+    step_dev_ms, by_kernel = device_ms(step, 20)
+    graphed = DecodeStep(model, caches, LM_SLOTS)
+    graph_ms = cuda_ms(lambda: graphed(toks, pos), iters=50)
+    weight_bytes = model.weight_bytes()
+    table_bytes = model.embed.table.numel() * model.embed.table.element_size()
+    bound_ms = weight_bytes / peaks.hbm_bytes_per_s * 1e3
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    emit("lm_serve", part="a", arch=LM_ARCH, dtype=cfg.dtype,
+         layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab,
+         slots=LM_SLOTS, max_len=LM_MAX_LEN, prompts=list(LM_PROMPTS),
+         max_new=LM_MAX_NEW, sampled=list(LM_SAMPLED),
+         kv_plan_bytes_per_seq=eng.kv_plan.bytes_per_seq,
+         params=model.param_count(), weight_bytes=weight_bytes,
+         layer_weight_bytes=weight_bytes - table_bytes,
+         table_bytes_fp32=table_bytes, init_s=init_s,
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         **stats, eager_step_ms_at_4=step_ms,
+         eager_step_device_ms_at_4=step_dev_ms,
+         eager_device_busy_share=step_dev_ms / step_ms,
+         graph_step_ms_at_4=graph_ms,
+         step_bound_ms=bound_ms, step_bound_by="bytes",
+         step_bound_bytes=weight_bytes,
+         calibrated_bytes_per_s=peaks.hbm_bytes_per_s,
+         datasheet_bound_ms=weight_bytes
+         / datasheet_peaks(kind).hbm_bytes_per_s * 1e3,
+         top_kernels_ms=dict(top), nvidia_smi=smi,
+         tokens={str(k): v for k, v in sorted(results.items())})
+    # ------------------------------------------ (c) isolation, gemma3
+    iso = {LM_ARCH: isolation(model, LM_SEED + 1)}
+    del model, eng, caches, graphed
+    release()
+
+    # ------------------- (b) the same config in fp32, full depth
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model = build_model(cfg32, device=dev, generator=gen(LM_SEED))
+    check = decode_vs_forward(model, LM_CHECK_LEN, LM_SEED + 2)
+    prompt = np.random.RandomState(LM_SEED + 3).randint(0, cfg.vocab, 20)
+    got = Engine(model, n_slots=1, max_len=64).run(
+        [Request(rid=0, prompt=prompt, max_new=8)])[0]
+    caches = model.decode_init(1, 64)
+    for t, tok in enumerate(prompt):
+        lg, _ = model.decode_step(caches, torch.tensor([int(tok)], device=dev),
+                                  torch.tensor([t], device=dev))
+    manual = [int(lg[0].argmax())]
+    for t in range(len(prompt), len(prompt) + 7):
+        lg, _ = model.decode_step(caches, torch.tensor([manual[-1]],
+                                                       device=dev),
+                                  torch.tensor([t], device=dev))
+        manual.append(int(lg[0].argmax()))
+    if got != manual:
+        fail(f"Engine's greedy tokens {got} differ from a decode_step loop's "
+             f"{manual}")
+    emit("lm_serve", part="b", arch=LM_ARCH, dtype="float32",
+         layers=cfg32.n_layers, decode_vs_forward=check,
+         engine_vs_decode_loop={"tokens": got, "equal": True},
+         max_memory_allocated=torch.cuda.max_memory_allocated())
+    del model, caches
+    release()
+
+    # ---------------- (d) granite-moe, rwkv6, recurrentgemma; hubert
+    others = {}
+    for name in LM_OTHERS:
+        cfg = get_config(name)
+        model = build_model(cfg, device=dev, generator=gen(LM_SEED))
+        eng = Engine(model, n_slots=LM_SLOTS, max_len=256, seed=LM_SEED)
+        rng = np.random.RandomState(LM_SEED + 4)
+        reqs = [Request(rid=i, prompt=rng.randint(0, cfg.vocab, n),
+                        max_new=16) for i, n in enumerate((9, 48, 23))]
+        _, st = serve_timed(eng, reqs)
+        entry = {"dtype": cfg.dtype, "layers": cfg.n_layers,
+                 "params": model.param_count(),
+                 "weight_bytes": model.weight_bytes(),
+                 "kv_plan_bytes_per_seq": eng.kv_plan.bytes_per_seq, **st,
+                 "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        if name == "rwkv6-1.6b":
+            iso[name] = isolation(model, LM_SEED + 1)
+        del model, eng
+        release()
+        unit = plan_segments(cfg)[0].kinds
+        cut = dataclasses.replace(cfg, dtype="float32", n_layers=len(unit),
+                                  capacity_factor=max(
+                                      cfg.capacity_factor,
+                                      cfg.n_experts / max(cfg.top_k, 1)))
+        model = build_model(cut, device=dev, generator=gen(LM_SEED))
+        entry["fp32_one_superblock"] = {
+            "kinds": "".join(unit),
+            **decode_vs_forward(model, LM_CHECK_LEN, LM_SEED + 2)}
+        others[name] = entry
+        del model
+        release()
+    cfg = get_config("hubert-xlarge")
+    model = build_model(cfg, device=dev, generator=gen(LM_SEED))
+    frames_ = torch.randn((2, 256, cfg.d_model), generator=gen(LM_SEED + 5),
+                          device=dev)
+    logits, _ = model.forward({"frame_embeds": frames_})
+    if logits.shape != (2, 256, cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        fail(f"hubert-xlarge forward: shape {tuple(logits.shape)}, finite "
+             f"{bool(torch.isfinite(logits).all())}")
+    hubert_ms = cuda_ms(lambda: model.forward({"frame_embeds": frames_}),
+                        iters=5)
+    others["hubert-xlarge"] = {
+        "dtype": cfg.dtype, "layers": cfg.n_layers, "batch": [2, 256],
+        "params": model.param_count(), "forward_ms": hubert_ms,
+        "finite": True,
+        "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    del model, logits
+    release()
+    moved = [c.launches - n for c, n in zip(counters, launches0)]
+    emit("lm_serve", part="c+d", isolation=iso, models=others,
+         kernel_launches_in_phase=dict(zip(
+             ("stencil_pipeline", "conv2d", "swa_decode"), moved)),
+         nvidia_smi=smi, seconds=time.perf_counter() - t_phase)
+
+
 def _registers(lib: str, pattern: str) -> dict | None:
     """ptxas's registers and spill bytes of the one entry function of
     library ``lib`` whose mangled name holds ``pattern``."""
@@ -1806,7 +2124,10 @@ def main() -> None:
     # ---------------------------------------------- 12. perf and memtrace
     perf = perf_phase(dev, kind)
 
-    # --------------------------------------------------- 13. kernels line
+    # ---------------------------------------- 13. the LM serving stack
+    lm_serve_phase(dev, kind)
+
+    # --------------------------------------------------- 14. kernels line
     share: dict[str, float] = {}
     for p in per.values():
         share[p["bound_by"]] = share.get(p["bound_by"], 0.0) + p["bound_ms"]

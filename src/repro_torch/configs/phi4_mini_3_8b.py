@@ -1,0 +1,13 @@
+"""phi4-mini-3.8b [dense]: 32L d=3072 24H (GQA kv=8) ff=8192 vocab=200064.
+
+RoPE + SwiGLU + GQA [arXiv:2412.08905]. Full attention -> long_500k skip.
+"""
+from repro_torch.models.common import ModelConfig, register
+
+
+@register("phi4-mini-3.8b")
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="phi4-mini-3.8b", family="dense",
+        n_layers=32, d_model=3072, n_heads=24, n_kv_heads=8,
+        d_ff=8192, vocab=200064, mlp="swiglu", tie_embeddings=True)

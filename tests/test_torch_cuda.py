@@ -1,4 +1,4 @@
-"""The CUDA kernels and the serving paths on the card.
+"""The CUDA kernels, the serving paths and the LM stack on the card.
 
 These tests need an NVIDIA GPU: on a machine without one they skip (the
 kernel has no CPU mode; the CPU tests hold its plain version against the
@@ -729,3 +729,54 @@ def test_memtrace_rings_reconcile_with_the_launched_program(cuda_device):
         assert mt["summary"]["smem_ring_bytes"] == prog.smem_bytes \
             - (8 * ncols + 2 * sp.MAX_RINGS) * 4
         assert mt["summary"]["prefetch_ring_bytes"] == prog.prefetch_bytes
+
+
+@pytest.mark.cuda
+def test_lm_decode_matches_forward_on_the_card(cuda_device):
+    """gemma3-1b at full width (d 1152, vocab 262144) and 2 layers (one
+    local, one global), float32 with TF32 off: decode_step over 40 tokens
+    against forward, the JAX package's bound for it (rtol 2e-4, atol
+    2e-4, tests/test_models.py:95-97)."""
+    import dataclasses
+
+    from repro_torch.models import build_model, get_config
+    cfg = dataclasses.replace(get_config("gemma3-1b"), n_layers=2,
+                              layer_pattern="LG", dtype="float32")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    m = build_model(cfg, device=cuda_device, generator=gen)
+    toks = torch.randint(0, cfg.vocab, (2, 40), generator=gen,
+                         device=cuda_device)
+    full, _ = m.forward({"tokens": toks})
+    caches = m.decode_init(2, 40)
+    outs = [m.decode_step(caches, toks[:, t],
+                          torch.full((2,), t, device=cuda_device))[0]
+            for t in range(40)]
+    torch.testing.assert_close(torch.stack(outs, dim=1), full, rtol=2e-4,
+                               atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gemma3-1b", "granite-moe-1b-a400m",
+                                  "rwkv6-1.6b", "recurrentgemma-2b"])
+def test_lm_engine_on_the_card_equals_the_cpu(cuda_device, name):
+    """One Engine run on the card (its steps replayed as CUDA graphs) and
+    the same run on the CPU (eager), float32, the same weights: equal
+    greedy tokens."""
+    import dataclasses
+
+    from repro_torch.launch.train import reduced_config
+    from repro_torch.models import build_model, get_config
+    from repro_torch.serve import Engine, Request
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(reduced_config(get_config(name)),
+                              dtype="float32")
+    cpu = build_model(cfg, device="cpu",
+                      generator=torch.Generator().manual_seed(0))
+    card = build_model(cfg, device=cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.RandomState(0)
+    reqs = [Request(rid=i, prompt=rng.randint(0, cfg.vocab, 5 + 9 * i),
+                    max_new=12) for i in range(4)]
+    got = Engine(card, n_slots=2, max_len=96).run(reqs)
+    assert got == Engine(cpu, n_slots=2, max_len=96).run(reqs)
