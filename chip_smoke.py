@@ -123,7 +123,29 @@ inputs. Each phase prints one JSON line:
                through the engine (3 requests, 16 tokens each), and in
                float32 with one super-block, decode against forward as in
                (b); hubert-xlarge's forward on a (2, 256) batch, finite;
- 14. kernels — one line per kernel path: route, source, launches, error
+ 14. lm_train — LM training (``repro_torch.train``, ``data``,
+               ``checkpointing``, ``launch.train``; no hand-written kernel
+               lies on it): (1) a reduced gemma3-1b in float32 with remat,
+               3 steps from one state on the card and on the CPU, the same
+               TokenStream batches: loss, grad norm, master copies and
+               moments within rtol 1e-4 / atol 1e-6 (but for at most
+               0.05% of the elements, masters within Adam's step bound);
+               (2) gemma3-1b at full config (26 layers, d 1152, vocab
+               262144, ~1.0 B parameters, bf16 with float32 master copies
+               and moments, remat per super-block) for 10 steps at B=1,
+               S=4096 (banded local and flash global attention, 8
+               cross-entropy chunks): every loss and grad norm finite, the
+               step-0 loss within 1% of a float32 loss of the same
+               masters, the loss falling; per step wall and optimizer ms,
+               tokens/s, model TFLOP/s and its share of the data sheet's
+               dense bf16 rate, peak memory; the device time of a step and
+               its top kernels; (3) the supervisor drill (12 float32
+               steps, an async checkpoint every 4, a Preemption at step 5
+               and a HardwareFailure at step 9): 2 restarts, every loss
+               within rtol 1e-5 of an uninterrupted run's, save and
+               restore seconds; (4) the training CLI in a subprocess, its
+               ``loss:`` line;
+ 15. kernels — one line per kernel path: route, source, launches, error
                and times (the K1 entries with device time, registers,
                spill bytes, shared memory and CTAs per SM, and their
                launches in the resilient run and in the perf phase).
@@ -223,6 +245,29 @@ LM_SAMPLED = (1, 4)
 LM_CHECK_LEN = 600
 LM_RTOL = LM_ATOL = 2e-4
 LM_OTHERS = ("granite-moe-1b-a400m", "rwkv6-1.6b", "recurrentgemma-2b")
+# lm_train phase: gemma3-1b; (1) a reduced float32 model (remat on) for 3
+# steps on the card and on the CPU, batches of 4 x 64 (the local layers'
+# banded path), the optimizer at a learning rate that shows a wrong update;
+# states compared within rtol 1e-4 / atol 1e-6 but for at most 0.05% of
+# the elements (Adam's sign of a gradient at rounding level is the
+# rounding's), those within Adam's step bound (4 x the summed learning
+# rate); (2) the full config at B=1, S=4096 (banded local layers, flash
+# global ones, 8 chunks of the cross-entropy) for 10 steps, the step-0
+# bf16 loss within 1% of a float32 loss of the same master copies; (3) the
+# supervisor drill: 12 float32 steps of the reduced model, a checkpoint
+# every 4 (async), a Preemption at step 5 and a HardwareFailure at step 9,
+# every step's loss within rtol 1e-5 of an uninterrupted run's (the
+# embedding backward adds with atomics on the card); (4) the CLI. The
+# bf16 rate is NVIDIA's H100 SXM data sheet's, dense
+LT_ARCH, LT_SEED = "gemma3-1b", 0
+LT_CMP_STEPS, LT_CMP_BATCH, LT_CMP_SEQ = 3, 4, 64
+LT_CMP_RTOL, LT_CMP_ATOL, LT_FEW = 1e-4, 1e-6, 5e-4
+LT_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=30)
+LT_STEPS, LT_BATCH, LT_SEQ = 10, 1, 4096
+LT_LOSS_RTOL = 1e-2
+LT_DRILL_STEPS, LT_DRILL_EVERY, LT_DRILL_RTOL = 12, 4, 1e-5
+LT_DRILL_FAILS = {5: "Preemption", 9: "HardwareFailure"}
+H100_BF16_DENSE_FLOPS = 989e12
 
 
 def emit(phase: str, **fields) -> None:
@@ -1708,6 +1753,318 @@ def lm_serve_phase(dev, kind: str) -> None:
          nvidia_smi=smi, seconds=time.perf_counter() - t_phase)
 
 
+def attention_flops(cfg, b: int, s: int) -> float:
+    """Forward + backward (3x forward) FLOPs of the score and value
+    products of a causal stack over (b, s) tokens: the keys each query
+    needs (all earlier ones in a global layer, at most ``window`` in a
+    local one), 2 x 2 x heads x head_dim a key."""
+    per_head = 4 * cfg.n_heads * cfg.hd
+    total = 0
+    for kind in cfg.layer_kinds():
+        w = cfg.window if kind == "L" else s
+        keys = sum(min(t + 1, w) for t in range(s))
+        total += per_head * keys
+    return 3.0 * b * total
+
+
+def traced_step_ms(fn) -> tuple[float | None, dict]:
+    """(device ms, {kernel: ms}) of one call of ``fn`` under the profiler;
+    (None, {}) when the trace holds no device time."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    from repro_torch.perf.timing import _device_us
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = {e.key: _device_us(e) / 1e3 for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and _device_us(e) > 0}
+    return (sum(by_name.values()) if by_name else None), by_name
+
+
+def card_copy_of_state(state, model):
+    """A training state on the CPU, moved to ``model``'s card."""
+    model.requires_grad_(True)
+    params = dict(model.named_parameters())
+    with torch.no_grad():
+        for n, p in params.items():
+            p.copy_(state["params"][n])
+
+    def move(x):
+        return ({k: move(v) for k, v in x.items()} if isinstance(x, dict)
+                else x.to(model.device, copy=True))
+    return {"params": params, "opt": move(state["opt"])}
+
+
+def compare_states(got: dict, exp: dict, lr_sum: float) -> dict:
+    """Master copies and moments of two training states (card, CPU):
+    max abs differences, and the elements outside LT_CMP_RTOL /
+    LT_CMP_ATOL, which must be few masters within Adam's step bound."""
+    out = {}
+    for key in ("master", "m", "v"):
+        worst, outliers, total, worst_out = 0.0, 0, 0, 0.0
+        for n, e in exp["opt"][key].items():
+            g = got["opt"][key][n].cpu()
+            err = (g - e).abs()
+            bad = err > LT_CMP_ATOL + LT_CMP_RTOL * e.abs()
+            worst = max(worst, float(err.max()))
+            total += e.numel()
+            if bad.any():
+                outliers += int(bad.sum())
+                worst_out = max(worst_out, float(err[bad].max()))
+        out[key] = {"max_abs_diff": worst, "outside_tolerance": outliers,
+                    "elements": total, "max_abs_diff_outside": worst_out}
+        if outliers > LT_FEW * total or (outliers and (
+                key != "master" or worst_out > 4 * lr_sum)):
+            fail(f"lm_train card against CPU: {key} {out[key]}")
+    return out
+
+
+def lm_train_phase(dev, kind: str) -> None:
+    """Phase 14: LM training (``repro_torch.train``, ``data``,
+    ``checkpointing``, ``launch.train``) on the card. No hand-written
+    kernel lies on this path."""
+    import dataclasses
+    import gc
+    import subprocess
+    import tempfile
+
+    from repro_torch.checkpointing import (HardwareFailure, Preemption,
+                                           Supervisor, SupervisorConfig)
+    from repro_torch.checkpointing import checkpoint as ckpt
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels import conv2d_stencil
+    from repro_torch.kernels import stencil_pipeline as sp
+    from repro_torch.kernels import swa_decode as swa
+    from repro_torch.launch.train import reduced_config
+    from repro_torch.models import build_model, get_config
+    from repro_torch.train import OptConfig, make_train_state, \
+        make_train_step
+    from repro_torch.train import train_loop
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counters = (sp.stencil_pipeline, conv2d_stencil.conv2d, swa.swa_decode)
+    launches0 = [c.launches for c in counters]
+    t_phase = time.perf_counter()
+    smi = card_info()["nvidia_smi"]
+
+    def gen(seed: int) -> torch.Generator:
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def release() -> None:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    # ------------------------------ (1) the card against the CPU, fp32
+    small = dataclasses.replace(reduced_config(get_config(LT_ARCH)),
+                                dtype="float32", remat=True)
+    opt = OptConfig(**LT_OPT)
+    cpu = build_model(small, device="cpu")
+    cs = make_train_state(cpu, torch.Generator().manual_seed(LT_SEED))
+    card = build_model(small, device=dev)
+    ks = card_copy_of_state(cs, card)
+    cpu_step, card_step = make_train_step(cpu, opt), make_train_step(card,
+                                                                     opt)
+    data = TokenStream(small.vocab, LT_CMP_BATCH, LT_CMP_SEQ, seed=LT_SEED)
+    steps, lr_sum = [], 0.0
+    for _ in range(LT_CMP_STEPS):
+        batch = data.next()
+        _, mc = cpu_step(cs, batch)
+        _, mk = card_step(ks, batch)
+        row = {k: (float(mk[k]), float(mc[k])) for k in ("loss",
+                                                         "grad_norm")}
+        for k, (a, b) in row.items():
+            if not np.isfinite(a) or abs(a - b) > LT_CMP_RTOL * abs(b):
+                fail(f"lm_train card against CPU: {k} {a} against {b}")
+        steps.append({k: {"card": a, "cpu": b, "rel_diff": abs(a - b)
+                          / abs(b)} for k, (a, b) in row.items()})
+        lr_sum += float(mc["lr"])
+    emit("lm_train", part="card_vs_cpu", arch=LT_ARCH, dtype="float32",
+         remat=True, layers=small.n_layers, d_model=small.d_model,
+         vocab=small.vocab, batch=[LT_CMP_BATCH, LT_CMP_SEQ],
+         rtol=LT_CMP_RTOL, atol=LT_CMP_ATOL, steps=steps,
+         state=compare_states(ks, cs, lr_sum), nvidia_smi=smi)
+    del cpu, cs, card, ks
+    release()
+
+    # ------------------------------- (2) full width and depth, bf16
+    cfg = get_config(LT_ARCH)
+    batch0 = TokenStream(cfg.vocab, LT_BATCH, LT_SEQ, seed=0).next()
+    model = build_model(cfg, device=dev)
+    t0 = time.perf_counter()
+    state = make_train_state(model, gen(LT_SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    # the step-0 loss of the same master copies in float32
+    ref = build_model(dataclasses.replace(cfg, dtype="float32"), device=dev)
+    with torch.no_grad():
+        for n, p in ref.named_parameters():
+            p.copy_(state["opt"]["master"][n])
+        loss32 = float(ref.loss(train_loop.to_device(batch0, dev))[0])
+    del ref
+    release()
+    opt_cfg = OptConfig(warmup_steps=max(LT_STEPS // 20, 5),
+                        total_steps=LT_STEPS)    # as launch/train.py does
+    events = []
+    adamw = train_loop.adamw_update
+
+    def timed_adamw(*a, **k):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = adamw(*a, **k)
+        end.record()
+        events.append((start, end))
+        return out
+    train_loop.adamw_update = timed_adamw
+    try:
+        step = make_train_step(model, opt_cfg)
+        data = TokenStream(cfg.vocab, LT_BATCH, LT_SEQ, seed=0)
+        n_params = model.param_count()
+        tokens = LT_BATCH * LT_SEQ
+        flops = 6.0 * n_params * tokens + attention_flops(cfg, LT_BATCH,
+                                                          LT_SEQ)
+        rows = []
+        for i in range(LT_STEPS):
+            batch = data.next()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, met = step(state, batch)
+            loss, gnorm = float(met["loss"]), float(met["grad_norm"])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            rows.append({"step": i, "loss": loss, "grad_norm": gnorm,
+                         "lr": float(met["lr"]), "wall_ms": dt * 1e3,
+                         "optimizer_ms": events[-1][0].elapsed_time(
+                             events[-1][1]),
+                         "tokens_per_s": tokens / dt,
+                         "model_tflops_per_s": flops / dt / 1e12,
+                         "bf16_datasheet_share": flops / dt
+                         / H100_BF16_DENSE_FLOPS,
+                         "max_memory_allocated":
+                             torch.cuda.max_memory_allocated()})
+        dev_ms, by_kernel = traced_step_ms(lambda: step(state, data.next()))
+    finally:
+        train_loop.adamw_update = adamw
+    losses = [r["loss"] for r in rows]
+    if not all(np.isfinite([r["loss"] for r in rows] +
+                           [r["grad_norm"] for r in rows])):
+        fail(f"lm_train full width: non-finite loss or norm {rows}")
+    if abs(losses[0] - loss32) > LT_LOSS_RTOL * abs(loss32):
+        fail(f"lm_train full width: step-0 bf16 loss {losses[0]} against "
+             f"float32 {loss32}")
+    if not np.mean(losses[-3:]) < losses[0]:
+        fail(f"lm_train full width: the loss did not fall {losses}")
+    steady = rows[1:]
+    wall = float(np.median([r["wall_ms"] for r in steady]))
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    emit("lm_train", part="full_width", arch=LT_ARCH, dtype=cfg.dtype,
+         remat=cfg.remat, layers=cfg.n_layers, d_model=cfg.d_model,
+         vocab=cfg.vocab, batch=[LT_BATCH, LT_SEQ], params=n_params,
+         loss_chunk=model.LOSS_CHUNK, opt=dataclasses.asdict(opt_cfg),
+         init_s=init_s, step0_loss_bf16=losses[0],
+         step0_loss_fp32=loss32, loss_rtol=LT_LOSS_RTOL,
+         model_flops_per_step=flops,
+         attention_flops_per_step=attention_flops(cfg, LT_BATCH, LT_SEQ),
+         bf16_datasheet_flops=H100_BF16_DENSE_FLOPS, steps=rows,
+         median_wall_ms=wall,
+         median_optimizer_ms=float(np.median([r["optimizer_ms"]
+                                              for r in steady])),
+         median_tokens_per_s=tokens / wall * 1e3,
+         median_model_tflops_per_s=flops / wall / 1e9,
+         step_device_ms=dev_ms,
+         device_busy_share=dev_ms / wall if dev_ms else None,
+         top_kernels_ms=dict(top),
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         nvidia_smi=smi)
+    del model, state, step
+    release()
+
+    # ------------------------------------- (3) the supervisor drill
+    times = {"save_s": [], "restore_s": []}
+    save, restore = ckpt.save, ckpt.restore
+
+    def timed(fn, key):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            times[key].append(time.perf_counter() - t0)
+            return out
+        return call
+    fails_by_name = {"Preemption": Preemption,
+                     "HardwareFailure": HardwareFailure}
+
+    def drill(fails: dict) -> tuple[dict, list, dict]:
+        m = build_model(small, device=dev)
+        st = make_train_state(m, gen(LT_SEED))
+
+        def hook(s):
+            if s in fails:
+                raise fails_by_name[fails.pop(s)](f"injected at {s}")
+        with tempfile.TemporaryDirectory() as d:
+            sup = Supervisor(SupervisorConfig(
+                ckpt_dir=d, ckpt_every=LT_DRILL_EVERY, async_save=True),
+                make_train_step(m, opt), st,
+                TokenStream(small.vocab, LT_CMP_BATCH, LT_CMP_SEQ,
+                            seed=LT_SEED), fail_hook=hook)
+            out = sup.run(LT_DRILL_STEPS)
+            written = sorted(os.listdir(d))
+        by_step = {e["step"]: e["loss"] for e in sup.metrics_log}
+        return out, [by_step[k] for k in sorted(by_step)], {
+            "master": st["opt"]["master"], "written": written}
+    ckpt.save, ckpt.restore = timed(save, "save_s"), timed(restore,
+                                                           "restore_s")
+    try:
+        plain, plain_losses, plain_state = drill({})
+        times = {"save_s": [], "restore_s": []}
+        hit, hit_losses, hit_state = drill(dict(LT_DRILL_FAILS))
+    finally:
+        ckpt.save, ckpt.restore = save, restore
+    rel = max(abs(a - b) / abs(b) for a, b in zip(hit_losses, plain_losses))
+    master_diff = max(float((hit_state["master"][n]
+                             - plain_state["master"][n]).abs().max())
+                      for n in plain_state["master"])
+    if hit["restarts"] != 2 or len(hit_losses) != LT_DRILL_STEPS or \
+            rel > LT_DRILL_RTOL:
+        fail(f"lm_train drill: {hit}, losses {hit_losses} against "
+             f"{plain_losses}")
+    emit("lm_train", part="drill", arch=LT_ARCH, dtype="float32",
+         steps=LT_DRILL_STEPS, ckpt_every=LT_DRILL_EVERY, async_save=True,
+         failures={str(k): v for k, v in LT_DRILL_FAILS.items()},
+         restarts=hit["restarts"], final_loss=hit["final_loss"],
+         uninterrupted_final_loss=plain["final_loss"],
+         max_loss_rel_diff=rel, rtol=LT_DRILL_RTOL,
+         final_master_max_abs_diff=master_diff,
+         checkpoints=hit_state["written"], **times, nvidia_smi=smi)
+
+    # ------------------------------------------------------- (4) the CLI
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+             LT_ARCH, "--reduced", "--steps", "4", "--ckpt-dir", d],
+            capture_output=True, text=True, timeout=600,
+            env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")})
+        cli_s = time.perf_counter() - t0
+    line = [ln for ln in run.stdout.splitlines() if ln.startswith("loss: ")]
+    if run.returncode != 0 or len(line) != 1 or "on cuda" not in run.stdout:
+        fail(f"lm_train CLI: exit {run.returncode}, {run.stdout[-2000:]} "
+             f"{run.stderr[-2000:]}")
+    cli_loss = {kv.split("=")[0]: float(kv.split("=")[1])
+                for kv in line[0].split()[1:]}
+    if not all(np.isfinite(list(cli_loss.values()))):
+        fail(f"lm_train CLI: {line[0]}")
+    moved = [c.launches - n for c, n in zip(counters, launches0)]
+    emit("lm_train", part="cli", command=f"python -m "
+         f"repro_torch.launch.train --arch {LT_ARCH} --reduced --steps 4",
+         loss=cli_loss, seconds=cli_s,
+         kernel_launches_in_phase=dict(zip(
+             ("stencil_pipeline", "conv2d", "swa_decode"), moved)),
+         nvidia_smi=smi, phase_seconds=time.perf_counter() - t_phase)
+
+
 def _registers(lib: str, pattern: str) -> dict | None:
     """ptxas's registers and spill bytes of the one entry function of
     library ``lib`` whose mangled name holds ``pattern``."""
@@ -2127,7 +2484,10 @@ def main() -> None:
     # ---------------------------------------- 13. the LM serving stack
     lm_serve_phase(dev, kind)
 
-    # --------------------------------------------------- 14. kernels line
+    # ------------------------------------------------- 14. LM training
+    lm_train_phase(dev, kind)
+
+    # --------------------------------------------------- 15. kernels line
     share: dict[str, float] = {}
     for p in per.values():
         share[p["bound_by"]] = share.get(p["bound_by"], 0.0) + p["bound_ms"]

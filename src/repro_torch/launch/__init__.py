@@ -1,2 +1,2 @@
-"""Launchers: the serving driver (``launch.serve``) and, for now, only the
-reduced-config helper of the training driver (``launch.train``)."""
+"""Launchers: the serving CLI (``launch.serve``) and the training CLI
+(``launch.train``)."""

@@ -56,7 +56,10 @@ def linspace(start: float, end: float) -> Init:
 
 class ParamBlock(nn.Module):
     """Named parameters with the reference's shapes, each with the
-    reference's initialiser. Serving only: no parameter requires grad."""
+    reference's initialiser. A block is built with gradients off, as
+    serving uses it (the engine captures its steps as CUDA graphs); the
+    training state turns them on (``train.make_train_state``,
+    ``requires_grad_(True)``)."""
 
     def __init__(self, device: torch.device):
         super().__init__()
@@ -69,13 +72,19 @@ class ParamBlock(nn.Module):
         self.register_parameter(name, nn.Parameter(t, requires_grad=False))
         self._inits[name] = init
 
+    def draws(self, gen: torch.Generator):
+        """(name, float32 value) of this block's own parameters, drawn
+        from ``gen`` in registration order."""
+        for name, init in self._inits.items():
+            p = getattr(self, name)
+            yield name, init(tuple(p.shape), gen, p.device)
+
     @torch.no_grad()
     def init_(self, gen: torch.Generator) -> None:
         """Fill this block's own parameters (drawn in float32, then cast
         to each parameter's dtype) from ``gen``, in registration order."""
-        for name, init in self._inits.items():
-            p = getattr(self, name)
-            p.copy_(init(tuple(p.shape), gen, p.device))
+        for name, value in self.draws(gen):
+            getattr(self, name).copy_(value)
 
 
 def weak(value: float, dtype: torch.dtype) -> float:
@@ -382,7 +391,10 @@ class Embed(ParamBlock):
 
 
 def embed(p, tokens, dtype):
-    return p.table[tokens].to(dtype)
+    """The table's rows for ``tokens``. ``F.embedding``'s backward sums a
+    row's gradient in a fixed order (indexing's accumulates in an order
+    that varies with the CPU's threads)."""
+    return F.embedding(tokens, p.table).to(dtype)
 
 
 def unembed(p_embed, x, lm_head=None):

@@ -8,6 +8,9 @@ reference scans each stack; here the sub-blocks are one flat
 ``nn.ModuleList`` in layer order, and the decode caches keep the
 reference's layout (per segment, per sub-layer kind, a leading axis of the
 segment's ``n``) so that a slot's rows are one view of every tensor.
+Training (``loss``) checkpoints one super-block at a time under
+``cfg.remat``, as the reference's ``jax.checkpoint`` of its scan body
+does, and computes the cross-entropy in checkpointed sequence chunks.
 
 Families:
   dense / moe / encoder / vlm -> attention super-blocks (+ MoE FFN)
@@ -17,10 +20,12 @@ Families:
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
 
@@ -231,16 +236,25 @@ class Model(nn.Module):
         self._embed_scale = L.weak(math.sqrt(cfg.d_model),
                                    cfg.compute_dtype)
 
+    def draw_init(self, gen: torch.Generator):
+        """(parameter name, float32 value) for every parameter, drawn from
+        ``gen`` with the reference's initialisers, one at a time. The
+        values are the unrounded float32 draws: the training state keeps
+        them as its master copies."""
+        for prefix, m in self.named_modules():
+            if isinstance(m, L.ParamBlock):
+                for name, value in m.draws(gen):
+                    yield f"{prefix}.{name}", value
+        if self.lm_head is not None:
+            yield "lm_head", L.normal(1.0 / math.sqrt(self.cfg.d_model))(
+                tuple(self.lm_head.shape), gen, self.device)
+
     @torch.no_grad()
     def init_(self, gen: torch.Generator) -> "Model":
         """Random weights with the reference's initialisers, drawn from
         ``gen`` (a generator on the model's device)."""
-        for m in self.modules():
-            if isinstance(m, L.ParamBlock):
-                m.init_(gen)
-        if self.lm_head is not None:
-            self.lm_head.copy_(L.normal(1.0 / math.sqrt(self.cfg.d_model))(
-                tuple(self.lm_head.shape), gen, self.device))
+        for name, value in self.draw_init(gen):
+            self.get_parameter(name).copy_(value)
         return self
 
     def _stack(self):
@@ -271,21 +285,36 @@ class Model(nn.Module):
         mrope = batch.get("mrope_positions") if cfg.mrope else None
         return x, positions, mrope
 
+    def _superblock(self, blocks, x, positions, mrope):
+        """One scan step of the reference: the sub-blocks of one
+        super-block. Returns (x, its aux loss)."""
+        a = torch.zeros((), device=x.device)
+        for sb in blocks:
+            x, aux = _subblock_apply(sb, self.cfg, sb.kind, x, positions,
+                                     mrope)
+            if aux:
+                a = a + aux["load_balance"] + 1e-3 * aux["router_z"]
+        return x, a
+
     def _hidden(self, batch):
-        """Run the layer stack; return (final hidden states, aux loss)."""
-        cfg = self.cfg
+        """Run the layer stack; return (final hidden states, aux loss).
+        Under ``cfg.remat`` and autograd, each super-block is
+        checkpointed: its activations are recomputed in the backward."""
         x, positions, mrope = self._embed_inputs(batch)
         aux_acc = torch.zeros((), dtype=torch.float32, device=x.device)
-        per_block: list[list] = [[] for _ in self.segments]
-        for si, ki, i, sb in self._stack():
-            if ki == 0:
-                per_block[si].append(torch.zeros((), device=x.device))
-            x, aux = _subblock_apply(sb, cfg, sb.kind, x, positions, mrope)
-            if aux:
-                per_block[si][i] = per_block[si][i] + aux["load_balance"] \
-                    + 1e-3 * aux["router_z"]
-        for blocks in per_block:
-            aux_acc = aux_acc + torch.stack(blocks).sum()
+        remat = self.cfg.remat and torch.is_grad_enabled()
+        layers = iter(self.layers)
+        for seg in self.segments:
+            auxs = []
+            for _ in range(seg.n):
+                blocks = [next(layers) for _ in seg.kinds]
+                if remat:
+                    x, a = checkpoint(self._superblock, blocks, x, positions,
+                                      mrope, use_reentrant=False)
+                else:
+                    x, a = self._superblock(blocks, x, positions, mrope)
+                auxs.append(a)
+            aux_acc = aux_acc + torch.stack(auxs).sum()
         x = L.rmsnorm(self.final_ln, x)
         return x, aux_acc
 
@@ -297,6 +326,49 @@ class Model(nn.Module):
         x, aux_acc = self._hidden(batch)
         logits = L.unembed(self.embed, x.float(), self.lm_head)
         return logits, aux_acc
+
+    # sequence-chunk size for the cross-entropy when S*V is large: one
+    # (B, 512, V) float32 logits tensor is live at a time (0.54 GB a batch
+    # row at gemma3's 262,144 vocab) instead of (B, S, V)
+    LOSS_CHUNK = 512
+
+    def _nll(self, x, labels):
+        logits = L.unembed(self.embed, x.float(), self.lm_head)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, labels[..., None].long())[..., 0]
+        return logz - gold
+
+    def _ce_from_hidden(self, x, labels):
+        """Per-token negative log-likelihood (B, S): unembed + logsumexp
+        one checkpointed sequence chunk at a time when S > 2 * LOSS_CHUNK
+        and divides by it, else directly."""
+        s = x.shape[1]
+        chunk = self.LOSS_CHUNK
+        if s <= 2 * chunk or s % chunk:
+            return self._nll(x, labels)
+        nll = self._nll
+        if torch.is_grad_enabled():
+            nll = functools.partial(checkpoint, self._nll,
+                                    use_reentrant=False)
+        return torch.cat([nll(x[:, c:c + chunk], labels[:, c:c + chunk])
+                          for c in range(0, s, chunk)], dim=1)
+
+    def loss(self, batch: dict[str, torch.Tensor]):
+        """Mean next-token cross-entropy over ``batch["labels"]`` (B, S),
+        weighted by an optional ``loss_mask`` (B, S), plus 0.01 x the MoE
+        aux loss -> (loss, {"nll", "aux"}). Differentiable: the training
+        step calls ``backward`` on it."""
+        x, aux = self._hidden(batch)
+        nll = self._ce_from_hidden(x, batch["labels"])
+        mask = batch.get("loss_mask")
+        if mask is not None:
+            mask = mask.to(nll.dtype)
+            nll = nll * mask
+            denom = mask.sum().clamp_min(1.0)
+        else:
+            denom = float(nll.numel())
+        mean = nll.sum() / denom
+        return mean + 0.01 * aux, {"nll": mean.detach(), "aux": aux.detach()}
 
     # -------------------------------------------------------------- decode
     def decode_init(self, b: int, max_len: int) -> Caches:

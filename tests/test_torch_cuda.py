@@ -780,3 +780,94 @@ def test_lm_engine_on_the_card_equals_the_cpu(cuda_device, name):
                     max_new=12) for i in range(4)]
     got = Engine(card, n_slots=2, max_len=96).run(reqs)
     assert got == Engine(cpu, n_slots=2, max_len=96).run(reqs)
+
+
+def _card_copy_of_state(state, model):
+    """The training state ``state`` (on the CPU) moved to ``model``'s
+    card: its parameters loaded, the optimizer's tensors copied."""
+    model.requires_grad_(True)
+    params = dict(model.named_parameters())
+    with torch.no_grad():
+        for n, p in params.items():
+            p.copy_(state["params"][n])
+
+    def move(x):
+        return ({k: move(v) for k, v in x.items()} if isinstance(x, dict)
+                else x.to(model.device, copy=True))
+    return {"params": params, "opt": move(state["opt"])}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gemma3-1b", "granite-moe-1b-a400m"])
+def test_lm_train_steps_on_the_card_equal_the_cpu(cuda_device, name):
+    """Two float32 train steps (remat on, TF32 off) of a reduced model
+    from one state on the card and on the CPU, the same TokenStream
+    batches: loss and grad norm within rtol 1e-4, master copies and
+    moments within rtol 1e-4 / atol 1e-6 but for at most 0.05% of the
+    elements, those within Adam's step bound (4 x the summed learning
+    rate): where a gradient is at rounding level its sign is the
+    rounding's."""
+    import dataclasses
+
+    from repro_torch.data import TokenStream
+    from repro_torch.launch.train import reduced_config
+    from repro_torch.models import build_model, get_config
+    from repro_torch.train import OptConfig, make_train_state, \
+        make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(reduced_config(get_config(name)),
+                              dtype="float32", remat=True)
+    opt = OptConfig(lr=1e-3, warmup_steps=2, total_steps=30)
+    cpu = build_model(cfg, device="cpu")
+    cs = make_train_state(cpu, torch.Generator().manual_seed(0))
+    card = build_model(cfg, device=cuda_device)
+    ks = _card_copy_of_state(cs, card)
+    data = TokenStream(cfg.vocab, batch=4, seq=64, seed=0)
+    lr_sum = 0.0
+    for _ in range(2):
+        batch = data.next()
+        _, mc = make_train_step(cpu, opt)(cs, batch)
+        _, mk = make_train_step(card, opt)(ks, batch)
+        for k in ("loss", "grad_norm"):
+            torch.testing.assert_close(mk[k].cpu(), mc[k], rtol=1e-4,
+                                       atol=0)
+        lr_sum += float(mc["lr"])
+    for key in ("master", "m", "v"):
+        outliers, total = 0, 0
+        for n, exp in cs["opt"][key].items():
+            got = ks["opt"][key][n].cpu()
+            err = (got - exp).abs()
+            bad = err > 1e-6 + 1e-4 * exp.abs()
+            total += exp.numel()
+            if bad.any():
+                assert key == "master" and float(err.max()) <= 4 * lr_sum, \
+                    (key, n, float(err.max()))
+                outliers += int(bad.sum())
+        assert outliers <= 5e-4 * total, (key, outliers, total)
+
+
+@pytest.mark.cuda
+def test_lm_checkpoint_round_trips_on_the_card(cuda_device, tmp_path):
+    """A bf16 training state on the card: an async save, the state
+    changed in place at once, the writer joined, a restore into the live
+    tensors: every leaf bit for bit as it was at the save."""
+    from repro_torch.checkpointing import checkpoint as ckpt
+    from repro_torch.launch.train import reduced_config
+    from repro_torch.models import build_model, get_config
+    from repro_torch.train import make_train_state
+    model = build_model(reduced_config(get_config("gemma3-1b")),
+                        device=cuda_device)
+    state = make_train_state(model, torch.Generator(
+        device=cuda_device).manual_seed(0))
+    leaves = ckpt._flatten_with_paths(state)
+    assert any(t.dtype == torch.bfloat16 for _, t in leaves)
+    before = [t.detach().clone() for _, t in leaves]
+    t = ckpt.save(str(tmp_path), 1, state, asynchronous=True)
+    with torch.no_grad():
+        for _, x in leaves:
+            x.add_(1)
+    t.join(timeout=120)
+    assert not t.is_alive()
+    ckpt.restore(str(tmp_path), state)
+    for (p, x), b in zip(leaves, before):
+        assert x.device.type == "cuda" and torch.equal(x, b), p
