@@ -145,7 +145,25 @@ inputs. Each phase prints one JSON line:
                within rtol 1e-5 of an uninterrupted run's, save and
                restore seconds; (4) the training CLI in a subprocess, its
                ``loss:`` line;
- 15. kernels — one line per kernel path: route, source, launches, error
+ 15. launch — the launch helpers, ``distributed/`` and the dry run (no
+               hand-written kernel lies on it): (a) the dry run over all
+               40 cells on the card's (1, 1) mesh, counted on meta (33
+               run, 7 skip; per cell arg_bytes, fits, FLOPs, dominant
+               term; no card memory allocated); (b) gemma3-1b x
+               decode_32k at full config in bf16 (B=128, caches of 32,768
+               positions, every row at the last one): the allocation
+               within 1% of the dry run's arg_bytes, 1 warm and 5 timed
+               steps, peak memory above arg_bytes (the temp bytes the dry
+               run cannot give), step ms against the roofline memory term,
+               finite logits; (c) ``pipeline_forward`` over the 4
+               super-blocks of gemma3-1b's first segment in float32, 6
+               microbatches of (1, 512), within 1e-5 of the super-blocks
+               in sequence; (d) the training CLI at full config (3 steps,
+               B=1, S=4096) with ``--distributed`` (NCCL, one rank) and
+               without: losses bit for bit; (e)
+               ``examples/train_lm_torch.py --full --steps 100``: its
+               learning assert;
+ 16. kernels — one line per kernel path: route, source, launches, error
                and times (the K1 entries with device time, registers,
                spill bytes, shared memory and CTAs per SM, and their
                launches in the resilient run and in the perf phase).
@@ -186,6 +204,9 @@ from repro_torch._device import synchronize  # noqa: E402
 # per call (CUDA events) and device (profiler) milliseconds
 from repro_torch.perf.timing import device_ms  # noqa: E402
 from repro_torch.perf.timing import event_ms as cuda_ms  # noqa: E402
+# the bf16 data-sheet rate's one home; the attention FLOPs of a stack
+from repro_torch.launch.mesh import H100_BF16_DENSE_FLOPS  # noqa: E402
+from repro_torch.launch.dryrun import attention_flops  # noqa: E402
 
 TOLERANCE_ULP = 0
 SHAPES = [(37, 53), (5, 48), (320, 480), (1080, 1920)]
@@ -267,7 +288,21 @@ LT_STEPS, LT_BATCH, LT_SEQ = 10, 1, 4096
 LT_LOSS_RTOL = 1e-2
 LT_DRILL_STEPS, LT_DRILL_EVERY, LT_DRILL_RTOL = 12, 4, 1e-5
 LT_DRILL_FAILS = {5: "Preemption", 9: "HardwareFailure"}
-H100_BF16_DENSE_FLOPS = 989e12
+# launch phase: (b) gemma3-1b x decode_32k at full config (bf16, B=128,
+# caches of 32,768 positions, every row at the last position), its
+# allocation held within 1% of the dry run's arg_bytes, 1 warm and 5
+# timed steps; (c) pipeline_forward over the 4 super-blocks of gemma3-1b's
+# first segment (5 local + 1 global each, d 1152) in float32, 6
+# microbatches of (1, 512) tokens, within 1e-5 of the super-blocks in
+# sequence (the JAX package's bound, tests/test_distributed.py); (d) the
+# training CLI with and without --distributed, losses bit for bit; (e)
+# examples/train_lm_torch.py --full
+LA_ARCH, LA_SEED, LA_SHAPE = "gemma3-1b", 21, "decode_32k"
+LA_ALLOC_RTOL, LA_WARM, LA_TIMED = 0.01, 1, 5
+LA_MICRO, LA_MB_SEQ, LA_PIPE_TOL = 6, 512, 1e-5
+LA_CLI = ["--arch", "gemma3-1b", "--steps", "3", "--batch", "1", "--seq",
+          "4096"]
+LA_EXAMPLE_STEPS = 100
 
 
 def emit(phase: str, **fields) -> None:
@@ -1753,20 +1788,6 @@ def lm_serve_phase(dev, kind: str) -> None:
          nvidia_smi=smi, seconds=time.perf_counter() - t_phase)
 
 
-def attention_flops(cfg, b: int, s: int) -> float:
-    """Forward + backward (3x forward) FLOPs of the score and value
-    products of a causal stack over (b, s) tokens: the keys each query
-    needs (all earlier ones in a global layer, at most ``window`` in a
-    local one), 2 x 2 x heads x head_dim a key."""
-    per_head = 4 * cfg.n_heads * cfg.hd
-    total = 0
-    for kind in cfg.layer_kinds():
-        w = cfg.window if kind == "L" else s
-        keys = sum(min(t + 1, w) for t in range(s))
-        total += per_head * keys
-    return 3.0 * b * total
-
-
 def traced_step_ms(fn) -> tuple[float | None, dict]:
     """(device ms, {kernel: ms}) of one call of ``fn`` under the profiler;
     (None, {}) when the trace holds no device time."""
@@ -2060,6 +2081,228 @@ def lm_train_phase(dev, kind: str) -> None:
     emit("lm_train", part="cli", command=f"python -m "
          f"repro_torch.launch.train --arch {LT_ARCH} --reduced --steps 4",
          loss=cli_loss, seconds=cli_s,
+         kernel_launches_in_phase=dict(zip(
+             ("stencil_pipeline", "conv2d", "swa_decode"), moved)),
+         nvidia_smi=smi, phase_seconds=time.perf_counter() - t_phase)
+
+
+def launch_phase(dev, kind: str) -> None:
+    """Phase 15: the launch helpers, ``distributed/`` and the dry run on
+    the card (``repro_torch.launch.shapes``, ``.mesh``, ``.dryrun``,
+    ``repro_torch.distributed``, the training CLI's ``--distributed``,
+    ``examples/train_lm_torch.py``). No hand-written kernel lies on this
+    path."""
+    import dataclasses
+    import gc
+    import shutil
+    import subprocess
+    import tempfile
+
+    from repro_torch.configs import ALL_ARCHS
+    from repro_torch.distributed.pipeline import pipeline_forward
+    from repro_torch.kernels import conv2d_stencil
+    from repro_torch.kernels import stencil_pipeline as sp
+    from repro_torch.kernels import swa_decode as swa
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import compat_make_mesh, make_card_mesh, \
+        mesh_scope
+    from repro_torch.launch.shapes import SHAPES
+    from repro_torch.models import build_model, get_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counters = (sp.stencil_pipeline, conv2d_stencil.conv2d, swa.swa_decode)
+    launches0 = [c.launches for c in counters]
+    t_phase = time.perf_counter()
+    smi = card_info()["nvidia_smi"]
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
+           "PYTHONIOENCODING": "utf-8"}
+
+    def gen(seed: int) -> torch.Generator:
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def release() -> None:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    # ------------------------------------- (a) the dry run, every cell
+    release()
+    mesh = make_card_mesh(dev)
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    cells = {(a, s): dryrun.lower_cell(a, s, mesh, "card", verbose=False)
+             for a in ALL_ARCHS for s in SHAPES}
+    dry_s = time.perf_counter() - t0
+    n_run = sum(r.status == "run" for r in cells.values())
+    n_skip = sum(r.status.startswith("SKIP") for r in cells.values())
+    if len(cells) != 40 or n_run != 33 or n_skip != 7:
+        fail(f"launch dry run: {len(cells)} cells, {n_run} run, {n_skip} "
+             f"skip: {[r.status for r in cells.values()]}")
+    if any(cells[("mixtral-8x22b", s)].fits for s in SHAPES):
+        fail("launch dry run: a mixtral-8x22b cell fits 80 GB")
+    if torch.cuda.memory_allocated() != held:
+        fail("launch dry run: it allocated card memory")
+    emit("launch", part="dryrun", mesh=mesh.shape, device=str(mesh.device),
+         run=n_run, skip=n_skip, seconds=dry_s, cells=[
+             {"arch": r.arch, "shape": r.shape, "status": r.status}
+             | ({"arg_bytes": r.arg_bytes, "out_bytes": r.out_bytes,
+                 "fits": r.fits, "flops_per_dev": r.flops_per_dev,
+                 "bytes_per_dev": r.bytes_per_dev,
+                 "dominant": r.roofline["dominant"],
+                 "compute_s": r.roofline["compute_s"],
+                 "memory_s": r.roofline["memory_s"]}
+                if r.status == "run" else {})
+             for r in cells.values()])
+
+    # --------------------- (b) gemma3-1b x decode_32k, for real, full size
+    cell = cells[(LA_ARCH, LA_SHAPE)]
+    cfg = get_config(LA_ARCH)
+    b, s = SHAPES[LA_SHAPE]["batch"], SHAPES[LA_SHAPE]["seq"]
+    release()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    with mesh_scope(mesh), torch.no_grad():
+        model = build_model(cfg, device=dev, generator=gen(LA_SEED))
+        caches = model.decode_init(b, s)
+        tokens = torch.randint(0, cfg.vocab, (b,), generator=gen(LA_SEED + 1),
+                               device=dev, dtype=torch.int32)
+        pos = torch.full((b,), s - 1, dtype=torch.int32, device=dev)
+        torch.cuda.synchronize()
+        alloc = torch.cuda.memory_allocated() - before
+        rel = abs(alloc - cell.arg_bytes) / cell.arg_bytes
+        if rel > LA_ALLOC_RTOL:
+            fail(f"launch decode_32k: {alloc} bytes allocated against the "
+                 f"dry run's {cell.arg_bytes} ({rel:.4f})")
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(LA_WARM):
+            logits, _ = model.decode_step(caches, tokens, pos)
+        torch.cuda.synchronize()
+        step_ms = []
+        for _ in range(LA_TIMED):
+            t0 = time.perf_counter()
+            logits, _ = model.decode_step(caches, tokens, pos)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() - before
+        finite = bool(torch.isfinite(logits).all())
+        dev_ms, top = traced_step_ms(
+            lambda: model.decode_step(caches, tokens, pos))
+    if not finite or tuple(logits.shape) != (b, cfg.vocab):
+        fail(f"launch decode_32k: logits {tuple(logits.shape)}, finite "
+             f"{finite}")
+    emit("launch", part="decode_32k", arch=LA_ARCH, batch=b, seq=s,
+         pos=s - 1, dtype=str(cfg.compute_dtype), arg_bytes=cell.arg_bytes,
+         allocated_bytes=alloc, alloc_rel_diff=rel, rtol=LA_ALLOC_RTOL,
+         peak_bytes=peak, peak_above_arg_bytes=peak - cell.arg_bytes,
+         dry_run_out_bytes=cell.out_bytes, dry_run_temp_bytes=None,
+         step_ms=step_ms, step_ms_median=float(np.median(step_ms)),
+         device_ms=dev_ms, top_kernels_ms=dict(sorted(
+             top.items(), key=lambda kv: -kv[1])[:6]),
+         roofline_memory_ms=cell.roofline["memory_s"] * 1e3,
+         roofline_compute_ms=cell.roofline["compute_s"] * 1e3,
+         bytes_per_dev=cell.bytes_per_dev, flops_per_dev=cell.flops_per_dev,
+         logits_finite=finite, nvidia_smi=smi)
+    del model, caches, logits, tokens, pos
+    release()
+
+    # -------------------------- (c) pipeline_forward at full width, fp32
+    model = build_model(dataclasses.replace(cfg, dtype="float32"),
+                        device=dev, generator=gen(LA_SEED + 2))
+    seg = model.segments[0]
+    width = len(seg.kinds)
+    stages = [list(model.layers[i * width:(i + 1) * width])
+              for i in range(seg.n)]
+    toks = torch.randint(0, cfg.vocab, (LA_MICRO, 1, LA_MB_SEQ),
+                         generator=gen(LA_SEED + 3), device=dev)
+    pmesh = compat_make_mesh((seg.n,), ("stage",), device=dev)
+    with torch.no_grad(), mesh_scope(pmesh):
+        embedded = [model._embed_inputs({"tokens": toks[m]})
+                    for m in range(LA_MICRO)]
+        x_micro = torch.stack([e[0] for e in embedded])
+        positions = embedded[0][1]
+
+        def apply(blocks, x):
+            return model._superblock(blocks, x, positions, None)[0]
+
+        def sequential():
+            out = torch.empty_like(x_micro)
+            for m in range(LA_MICRO):
+                x = x_micro[m]
+                for blocks in stages:
+                    x = apply(blocks, x)
+                out[m] = x
+            return out
+        pipeline_forward(stages, x_micro, apply, pmesh)       # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = pipeline_forward(stages, x_micro, apply, pmesh)
+        torch.cuda.synchronize()
+        pipe_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        exp = sequential()
+        torch.cuda.synchronize()
+        seq_ms = (time.perf_counter() - t0) * 1e3
+        err = float((got - exp).abs().max())
+        finite = bool(torch.isfinite(got).all())
+    if not finite or err > LA_PIPE_TOL:
+        fail(f"launch pipeline_forward: max error {err}, finite {finite}")
+    emit("launch", part="pipeline", arch=LA_ARCH, stages=seg.n,
+         kinds="".join(seg.kinds), d_model=cfg.d_model, dtype="float32",
+         microbatches=LA_MICRO, microbatch=[1, LA_MB_SEQ],
+         ticks=LA_MICRO + seg.n - 1, max_abs_err=err, tol=LA_PIPE_TOL,
+         pipeline_ms=pipe_ms, sequential_ms=seq_ms)
+    del model, stages, embedded, x_micro, got, exp
+    release()
+
+    # ----------------------------- (d) the training CLI, --distributed
+    def cli(extra: list[str]) -> tuple[list, float, str]:
+        with tempfile.TemporaryDirectory() as d:
+            free = shutil.disk_usage(d).free
+            t0 = time.perf_counter()
+            run = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.train", *LA_CLI,
+                 *extra, "--ckpt-dir", d], capture_output=True, text=True,
+                encoding="utf-8", timeout=900, env=env)
+            secs = time.perf_counter() - t0
+        line = [ln for ln in run.stdout.splitlines()
+                if ln.startswith("losses: ")]
+        if run.returncode != 0 or len(line) != 1:
+            fail(f"launch CLI {extra}: exit {run.returncode} (disk free "
+                 f"{free}), {run.stdout[-2000:]} {run.stderr[-3000:]}")
+        return json.loads(line[0][len("losses: "):]), secs, run.stdout
+    dist_losses, dist_s, dist_out = cli(["--distributed"])
+    plain_losses, plain_s, _ = cli([])
+    tag = "in a process group (nccl, world size 1)"
+    if tag not in dist_out:
+        fail(f"launch CLI --distributed: no '{tag}' in {dist_out[-1000:]}")
+    if dist_losses != plain_losses or len(dist_losses) != 3 or \
+            not all(np.isfinite(dist_losses)):
+        fail(f"launch CLI: --distributed losses {dist_losses}, plain "
+             f"{plain_losses}")
+    emit("launch", part="distributed_cli",
+         command="python -m repro_torch.launch.train " + " ".join(LA_CLI)
+         + " [--distributed]", backend="nccl", world_size=1,
+         losses=dist_losses, plain_losses=plain_losses, bit_for_bit=True,
+         seconds=dist_s, plain_seconds=plain_s)
+
+    # ------------------------------------------- (e) the example's twin
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "examples", "train_lm_torch.py"),
+         "--full", "--steps", str(LA_EXAMPLE_STEPS)], capture_output=True,
+        text=True, encoding="utf-8", timeout=900, env=env)
+    ex_s = time.perf_counter() - t0
+    final = [ln for ln in run.stdout.splitlines()
+             if ln.startswith("final loss ")]
+    if run.returncode != 0 or len(final) != 1 or "learning" not in final[0]:
+        fail(f"launch example: exit {run.returncode}, {run.stdout[-2000:]} "
+             f"{run.stderr[-3000:]}")
+    words = final[0].replace("(", " ").replace(")", " ").split()
+    moved = [c.launches - n for c, n in zip(counters, launches0)]
+    emit("launch", part="example",
+         command=f"python examples/train_lm_torch.py --full --steps "
+                 f"{LA_EXAMPLE_STEPS}", final_loss=float(words[2]),
+         start_loss=float(words[4]), seconds=ex_s,
          kernel_launches_in_phase=dict(zip(
              ("stencil_pipeline", "conv2d", "swa_decode"), moved)),
          nvidia_smi=smi, phase_seconds=time.perf_counter() - t_phase)
@@ -2487,7 +2730,10 @@ def main() -> None:
     # ------------------------------------------------- 14. LM training
     lm_train_phase(dev, kind)
 
-    # --------------------------------------------------- 15. kernels line
+    # ----------------------- 15. launch helpers, distributed/, dry run
+    launch_phase(dev, kind)
+
+    # --------------------------------------------------- 16. kernels line
     share: dict[str, float] = {}
     for p in per.values():
         share[p["bound_by"]] = share.get(p["bound_by"], 0.0) + p["bound_ms"]

@@ -12,9 +12,13 @@ values are the same, cast once at load), and the ones it reads in float32
 (norm scales, the embedding table that ``unembed`` reads, the MoE router,
 the RG-LRU and RWKV decay constants) stay float32.
 
-The reference's sharding hooks (``activation_sharding``, ``shard_dim``,
-``pin_batch``, ``_seq_constraint``) are identities without a mesh and are
-left out; they come with the ``distributed/`` port. RoPE takes its
+Each parameter carries the reference's trailing-dim logical axes
+(``ParamBlock.axes``; ``Model.logical_axes`` gathers them), which
+``distributed/sharding.py`` maps onto a mesh. The reference's activation
+hooks (``activation_sharding``, ``shard_dim``, ``pin_batch``,
+``_seq_constraint``, and ``moe_sharding`` in ``moe.py``) place
+activations across the chips of a mesh; on one card they have no meaning,
+and they are left out rather than kept as no-ops. RoPE takes its
 frequency table from the attention block (``Attention.freqs``, built once
 on the block's device) where the reference recomputes it from ``theta``.
 """
@@ -56,7 +60,8 @@ def linspace(start: float, end: float) -> Init:
 
 class ParamBlock(nn.Module):
     """Named parameters with the reference's shapes, each with the
-    reference's initialiser. A block is built with gradients off, as
+    reference's initialiser and logical axes (``axes``: one name, or
+    None, per dimension). A block is built with gradients off, as
     serving uses it (the engine captures its steps as CUDA graphs); the
     training state turns them on (``train.make_train_state``,
     ``requires_grad_(True)``)."""
@@ -65,12 +70,15 @@ class ParamBlock(nn.Module):
         super().__init__()
         self._device = torch.device(device)
         self._inits: dict[str, Init] = {}
+        self.axes: dict[str, tuple[str | None, ...]] = {}
 
     def param(self, name: str, shape: tuple, dtype: torch.dtype,
-              init: Init) -> None:
+              init: Init, axes: tuple[str | None, ...]) -> None:
+        assert len(axes) == len(shape), (name, shape, axes)
         t = torch.empty(shape, dtype=dtype, device=self._device)
         self.register_parameter(name, nn.Parameter(t, requires_grad=False))
         self._inits[name] = init
+        self.axes[name] = tuple(axes)
 
     def draws(self, gen: torch.Generator):
         """(name, float32 value) of this block's own parameters, drawn
@@ -98,7 +106,7 @@ def weak(value: float, dtype: torch.dtype) -> float:
 class RMSNorm(ParamBlock):
     def __init__(self, d: int, device):
         super().__init__(device)
-        self.param("scale", (d,), torch.float32, const(1.0))
+        self.param("scale", (d,), torch.float32, const(1.0), ("embed",))
 
 
 def rmsnorm(p, x, eps=1e-6):
@@ -153,15 +161,22 @@ class Attention(ParamBlock):
     def __init__(self, d, n_heads, n_kv, hd, qkv_bias, theta, dtype,
                  device):
         super().__init__(device)
-        self.param("wq", (d, n_heads, hd), dtype, normal())
-        self.param("wk", (d, n_kv, hd), dtype, normal())
-        self.param("wv", (d, n_kv, hd), dtype, normal())
+        self.param("wq", (d, n_heads, hd), dtype, normal(),
+                   ("embed", "heads", "head_dim"))
+        self.param("wk", (d, n_kv, hd), dtype, normal(),
+                   ("embed", "kv_heads", "head_dim"))
+        self.param("wv", (d, n_kv, hd), dtype, normal(),
+                   ("embed", "kv_heads", "head_dim"))
         self.param("wo", (n_heads, hd, d), dtype,
-                   normal(1.0 / math.sqrt(n_heads * hd)))
+                   normal(1.0 / math.sqrt(n_heads * hd)),
+                   ("heads", "head_dim", "embed"))
         if qkv_bias:
-            self.param("bq", (n_heads, hd), dtype, const(0.0))
-            self.param("bk", (n_kv, hd), dtype, const(0.0))
-            self.param("bv", (n_kv, hd), dtype, const(0.0))
+            self.param("bq", (n_heads, hd), dtype, const(0.0),
+                       ("heads", "head_dim"))
+            self.param("bk", (n_kv, hd), dtype, const(0.0),
+                       ("kv_heads", "head_dim"))
+            self.param("bv", (n_kv, hd), dtype, const(0.0),
+                       ("kv_heads", "head_dim"))
         self.qkv_bias = qkv_bias
         self.register_buffer("freqs", torch.from_numpy(
             rope_freqs(hd, theta)).to(self._device), persistent=False)
@@ -360,9 +375,11 @@ class MLP(ParamBlock):
     def __init__(self, d, d_ff, kind, dtype, device):
         super().__init__(device)
         if kind in ("swiglu", "geglu"):
-            self.param("w_gate", (d, d_ff), dtype, normal())
-        self.param("w_up", (d, d_ff), dtype, normal())
-        self.param("w_down", (d_ff, d), dtype, normal(1.0 / math.sqrt(d_ff)))
+            self.param("w_gate", (d, d_ff), dtype, normal(),
+                       ("embed", "mlp"))
+        self.param("w_up", (d, d_ff), dtype, normal(), ("embed", "mlp"))
+        self.param("w_down", (d_ff, d), dtype, normal(1.0 / math.sqrt(d_ff)),
+                   ("mlp", "embed"))
 
 
 def gelu(x):
@@ -387,7 +404,7 @@ class Embed(ParamBlock):
         # scale 1/sqrt(d): with the sqrt(d) embedding multiplier activations
         # enter the stack ~N(0,1) and tied-unembed logits stay O(1)
         self.param("table", (vocab, d), torch.float32,
-                   normal(1.0 / math.sqrt(d)))
+                   normal(1.0 / math.sqrt(d)), ("vocab", "embed"))
 
 
 def embed(p, tokens, dtype):

@@ -21,11 +21,14 @@ from .layers import ParamBlock, gelu, normal
 class MoE(ParamBlock):
     def __init__(self, d, d_ff, n_experts, dtype, device):
         super().__init__(device)
-        self.param("router", (d, n_experts), torch.float32, normal(0.02))
-        self.param("w_gate", (n_experts, d, d_ff), dtype, normal())
-        self.param("w_up", (n_experts, d, d_ff), dtype, normal())
+        self.param("router", (d, n_experts), torch.float32, normal(0.02),
+                   ("embed", None))
+        self.param("w_gate", (n_experts, d, d_ff), dtype, normal(),
+                   ("expert", "embed", "mlp"))
+        self.param("w_up", (n_experts, d, d_ff), dtype, normal(),
+                   ("expert", "embed", "mlp"))
         self.param("w_down", (n_experts, d_ff, d), dtype,
-                   normal(1.0 / math.sqrt(d_ff)))
+                   normal(1.0 / math.sqrt(d_ff)), ("expert", "mlp", "embed"))
 
 
 def _top_k(probs: torch.Tensor, k: int):

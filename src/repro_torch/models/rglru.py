@@ -28,14 +28,17 @@ class RGLRU(ParamBlock):
     def __init__(self, d, lru_width, conv_width, dtype, device):
         super().__init__(device)
         w = lru_width
-        self.param("w_x", (d, w), dtype, normal())
-        self.param("w_y", (d, w), dtype, normal())
-        self.param("conv_w", (conv_width, w), dtype, normal(0.1))
-        self.param("conv_b", (w,), dtype, const(0.0))
-        self.param("lambda_p", (w,), torch.float32, linspace(2.0, 6.0))
-        self.param("w_rgate", (w, w), dtype, normal(0.02))
-        self.param("w_igate", (w, w), dtype, normal(0.02))
-        self.param("w_out", (w, d), dtype, normal(1.0 / math.sqrt(w)))
+        self.param("w_x", (d, w), dtype, normal(), ("embed", "mlp"))
+        self.param("w_y", (d, w), dtype, normal(), ("embed", "mlp"))
+        self.param("conv_w", (conv_width, w), dtype, normal(0.1),
+                   (None, "mlp"))
+        self.param("conv_b", (w,), dtype, const(0.0), ("mlp",))
+        self.param("lambda_p", (w,), torch.float32, linspace(2.0, 6.0),
+                   ("mlp",))
+        self.param("w_rgate", (w, w), dtype, normal(0.02), ("mlp", None))
+        self.param("w_igate", (w, w), dtype, normal(0.02), ("mlp", None))
+        self.param("w_out", (w, d), dtype, normal(1.0 / math.sqrt(w)),
+                   ("mlp", "embed"))
 
 
 def _conv1d(x, w, b):

@@ -25,20 +25,26 @@ class RWKV6(ParamBlock):
         super().__init__(device)
         hd = d // n_heads
         # time-mix
-        self.param("mu", (5, d), dtype, const(0.5))   # token-shift mixes
-        self.param("w_r", (d, d), dtype, normal())
-        self.param("w_k", (d, d), dtype, normal())
-        self.param("w_v", (d, d), dtype, normal())
-        self.param("w_o", (d, d), dtype, normal())
-        self.param("w_decay", (d, d), dtype, normal(0.01))
-        self.param("decay_base", (n_heads, hd), torch.float32, const(-6.0))
-        self.param("bonus_u", (n_heads, hd), torch.float32, const(0.0))
-        self.param("w_gate", (d, d), dtype, normal())
+        self.param("mu", (5, d), dtype, const(0.5),    # token-shift mixes
+                   (None, "embed"))
+        self.param("w_r", (d, d), dtype, normal(), ("embed", "heads_flat"))
+        self.param("w_k", (d, d), dtype, normal(), ("embed", "heads_flat"))
+        self.param("w_v", (d, d), dtype, normal(), ("embed", "heads_flat"))
+        self.param("w_o", (d, d), dtype, normal(), ("heads_flat", "embed"))
+        self.param("w_decay", (d, d), dtype, normal(0.01),
+                   ("embed", "heads_flat"))
+        self.param("decay_base", (n_heads, hd), torch.float32, const(-6.0),
+                   ("kv_heads", None))
+        self.param("bonus_u", (n_heads, hd), torch.float32, const(0.0),
+                   ("kv_heads", None))
+        self.param("w_gate", (d, d), dtype, normal(),
+                   ("embed", "heads_flat"))
         # channel-mix
-        self.param("cm_mu", (2, d), dtype, const(0.5))
-        self.param("cm_k", (d, d_ff), dtype, normal())
-        self.param("cm_v", (d_ff, d), dtype, normal(1.0 / math.sqrt(d_ff)))
-        self.param("cm_r", (d, d), dtype, normal())
+        self.param("cm_mu", (2, d), dtype, const(0.5), (None, "embed"))
+        self.param("cm_k", (d, d_ff), dtype, normal(), ("embed", "mlp"))
+        self.param("cm_v", (d_ff, d), dtype, normal(1.0 / math.sqrt(d_ff)),
+                   ("mlp", "embed"))
+        self.param("cm_r", (d, d), dtype, normal(), ("embed", "heads_flat"))
 
 
 def _shift(x):

@@ -249,6 +249,20 @@ class Model(nn.Module):
             yield "lm_head", L.normal(1.0 / math.sqrt(self.cfg.d_model))(
                 tuple(self.lm_head.shape), gen, self.device)
 
+    def logical_axes(self) -> dict[str, tuple[str | None, ...]]:
+        """Trailing-dim logical axes of every parameter, keyed by its
+        name: the reference's ``Model.logical_axes`` with the stack dim
+        of its super-block leaves removed (the port keeps each
+        super-block's parameters as tensors of their own)."""
+        ax = {}
+        for prefix, m in self.named_modules():
+            if isinstance(m, L.ParamBlock):
+                for name, axes in m.axes.items():
+                    ax[f"{prefix}.{name}"] = axes
+        if self.lm_head is not None:
+            ax["lm_head"] = ("embed", "vocab")
+        return ax
+
     @torch.no_grad()
     def init_(self, gen: torch.Generator) -> "Model":
         """Random weights with the reference's initialisers, drawn from
@@ -371,10 +385,14 @@ class Model(nn.Module):
         return mean + 0.01 * aux, {"nll": mean.detach(), "aux": aux.detach()}
 
     # -------------------------------------------------------------- decode
-    def decode_init(self, b: int, max_len: int) -> Caches:
+    def decode_init(self, b: int, max_len: int, device=None) -> Caches:
+        """Zero decode caches for ``b`` rows of ``max_len`` positions on
+        ``device`` (the model's unless given; ``"meta"`` for shapes
+        only)."""
         cfg = self.cfg
+        dev = self.device if device is None else torch.device(device)
         return [[_subblock_cache_init(cfg, kind, seg.n, b, max_len,
-                                      cfg.compute_dtype, self.device)
+                                      cfg.compute_dtype, dev)
                  for kind in seg.kinds] for seg in self.segments]
 
     @torch.no_grad()

@@ -13,6 +13,13 @@ prefills one, which moves the recurrent state (RG-LRU, RWKV) of every
 other active slot, and it keeps a reused slot's state from its previous
 request.
 
+A request's prefill gives its first token. When that token already meets
+``max_new`` the request completes at admission, without a decode step:
+the next ``step()`` (or ``run()``) returns its ``Completed``, and the
+slot is free again. The reference appends another token in the step
+after the prefill before it checks ``max_new``, so ``max_new=1`` returns
+two tokens there.
+
 The reference jits its step and its prefill. On the card each of the
 engine's step shapes (all slots; one slot's rows, per slot) is captured
 once as a CUDA graph over the engine's own cache tensors, which the
@@ -114,6 +121,7 @@ class Engine:
         self.req: list[Request | None] = [None] * n_slots
         self.out_tokens: list[list[int]] = [[] for _ in range(n_slots)]
         self.last_token = np.zeros((n_slots,), np.int64)
+        self._admitted_done: list[Completed] = []
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         with torch.no_grad():
@@ -144,6 +152,10 @@ class Engine:
             return False
         slot = int(free[0])
         first = self._prefill(slot, np.asarray(req.prompt))
+        if req.max_new <= 1:        # done at admission: the slot stays free
+            self._admitted_done.append(Completed(
+                rid=req.rid, tokens=[first][:max(req.max_new, 0)]))
+            return True
         self.pos[slot] = n
         self.active[slot] = True
         self.req[slot] = req
@@ -154,15 +166,18 @@ class Engine:
     # ---------------------------------------------------------------- step
     @torch.no_grad()
     def step(self) -> list[Completed]:
+        """One decode step of every active slot; returns the requests it
+        completed, after those completed at admission since the last
+        step."""
+        done, self._admitted_done = self._admitted_done, []
         if not self.active.any():
-            return []
+            return done
         logits = self._step(torch.from_numpy(self.last_token),
                             torch.from_numpy(self.pos))
         greedy = torch.argmax(logits, dim=-1)
         probs = torch.softmax(logits / SAMPLE_TEMPERATURE, dim=-1)
         sampled = torch.multinomial(probs, 1, generator=self.generator)[:, 0]
         greedy, sampled = greedy.cpu().numpy(), sampled.cpu().numpy()
-        done: list[Completed] = []
         for s in range(self.n_slots):
             if not self.active[s]:
                 continue
@@ -182,7 +197,7 @@ class Engine:
         """Submit everything, drain to completion (test/benchmark entry)."""
         pending = list(requests)
         results: dict[int, list[int]] = {}
-        while pending or self.active.any():
+        while pending or self.active.any() or self._admitted_done:
             while pending and self.add_request(pending[0]):
                 pending.pop(0)
             for c in self.step():

@@ -67,7 +67,8 @@ def _split(batch: dict[str, torch.Tensor], n: int) -> list[dict]:
 
 
 def make_train_step(model, opt_cfg: OptConfig, grad_accum: int = 1,
-                    compress_grads: bool = False) -> Callable:
+                    compress_grads: bool = False,
+                    process_group=None) -> Callable:
     """Build ``train_step(state, batch) -> (state, metrics)``.
 
     grad_accum > 1 splits the batch into microbatches run serially, their
@@ -76,7 +77,9 @@ def make_train_step(model, opt_cfg: OptConfig, grad_accum: int = 1,
     reference applies it before its data-parallel all-reduce); the
     residual lives in the optimizer state as ``ef_residual``. One int8
     scale covers a parameter of all super-blocks of a segment, as the
-    reference's covers its leaf stacked over them."""
+    reference's covers its leaf stacked over them. With a
+    ``process_group`` the gradients are then averaged over its ranks
+    (sum, then divide by the world size: exact for one rank)."""
     groups = scale_groups(model) if compress_grads else None
 
     def grads_of(params):
@@ -120,6 +123,14 @@ def make_train_step(model, opt_cfg: OptConfig, grad_accum: int = 1,
                     groups)
                 for n, e in new_err.items():
                     err[n].copy_(e)
+
+        if process_group is not None:
+            import torch.distributed as dist
+            world = dist.get_world_size(process_group)
+            with torch.no_grad():
+                for g in grads.values():
+                    dist.all_reduce(g, group=process_group)
+                    g.div_(world)
 
         opt_metrics = adamw_update(opt_cfg, params, grads, state["opt"])
         return state, {"loss": loss, **opt_metrics}

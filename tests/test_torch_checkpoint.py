@@ -442,9 +442,12 @@ def test_train_cli_runs_and_resumes_on_cpu(tmp_path, capsys):
 
 
 def test_train_cli_refuses_distributed(capsys):
+    """``--distributed`` trains in a one-rank group
+    (``tests/test_torch_distributed.py``); ``--multi-pod`` stays refused,
+    naming the single card."""
     with pytest.raises(SystemExit):
-        train_cli.main(["--arch", "qwen2.5-3b", "--distributed"])
-    assert "ROADMAP.md" in capsys.readouterr().err
+        train_cli.main(["--arch", "qwen2.5-3b", "--multi-pod"])
+    assert "single card" in capsys.readouterr().err
 
 
 def test_train_cli_defaults_to_the_card(capsys):

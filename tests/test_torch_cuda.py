@@ -871,3 +871,127 @@ def test_lm_checkpoint_round_trips_on_the_card(cuda_device, tmp_path):
     ckpt.restore(str(tmp_path), state)
     for (p, x), b in zip(leaves, before):
         assert x.device.type == "cuda" and torch.equal(x, b), p
+
+
+@pytest.mark.cuda
+def test_decode_allocation_matches_the_dry_run_on_the_card(cuda_device):
+    """gemma3-1b x decode_32k at full width and batch, one super-block
+    deep: the card's allocation for the parameters, caches, tokens and
+    pos is the dry run's ``arg_bytes`` within 1%, and a step's logits
+    are finite."""
+    import dataclasses
+    import gc
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_card_mesh
+    from repro_torch.launch.shapes import SHAPES
+    from repro_torch.models import build_model, get_config
+    cfg = dataclasses.replace(get_config("gemma3-1b"), n_layers=6)
+    cell = dryrun.lower_cell("gemma3-1b", "decode_32k",
+                             make_card_mesh(cuda_device), "card", False,
+                             cfg=cfg)
+    b, s = SHAPES["decode_32k"]["batch"], SHAPES["decode_32k"]["seq"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    with torch.no_grad():
+        model = build_model(cfg, device=cuda_device, generator=torch.Generator(
+            device=cuda_device).manual_seed(0))
+        caches = model.decode_init(b, s)
+        tokens = torch.zeros((b,), dtype=torch.int32, device=cuda_device)
+        pos = torch.full((b,), s - 1, dtype=torch.int32, device=cuda_device)
+        torch.cuda.synchronize()
+        alloc = torch.cuda.memory_allocated() - before
+        assert abs(alloc - cell.arg_bytes) <= 0.01 * cell.arg_bytes
+        logits, _ = model.decode_step(caches, tokens, pos)
+        assert logits.shape == (b, cfg.vocab)
+        assert bool(torch.isfinite(logits).all())
+
+
+@pytest.mark.cuda
+def test_pipeline_forward_on_the_card_equals_the_cpu(cuda_device):
+    """Three float32 super-blocks of a reduced gemma3-1b as stages, 5
+    microbatches: on each device within 1e-5 of its own sequential
+    forward (the JAX package's bound), and the card within 1e-5 of the
+    output's scale (max |x|) of the CPU: the two devices sum their
+    float32 products in other orders through 18 layers (1.4e-5 and
+    1.8e-5 on outputs of scale ~6 at the first two card runs)."""
+    import dataclasses
+    from repro_torch.distributed.pipeline import pipeline_forward
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.launch.train import reduced_config
+    from repro_torch.models import build_model, get_config
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(reduced_config(get_config("gemma3-1b")),
+                              n_layers=18, dtype="float32")
+    toks = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab, size=(5, 2, 24)))
+    cpu = build_model(cfg, device="cpu",
+                      generator=torch.Generator().manual_seed(0))
+    card = build_model(cfg, device=cuda_device)
+    with torch.no_grad():
+        for n, p in card.named_parameters():
+            p.copy_(cpu.get_parameter(n))
+    outs = {}
+    for dev, model in (("cpu", cpu), (cuda_device, card)):
+        seg = model.segments[0]
+        w = len(seg.kinds)
+        stages = [list(model.layers[i * w:(i + 1) * w])
+                  for i in range(seg.n)]
+        with torch.no_grad():
+            emb = [model._embed_inputs({"tokens": t.to(dev)}) for t in toks]
+            x = torch.stack([e[0] for e in emb])
+            positions = emb[0][1]
+
+            def apply(blocks, h):
+                return model._superblock(blocks, h, positions, None)[0]
+            mesh = compat_make_mesh((seg.n,), ("stage",), device=dev)
+            got = pipeline_forward(stages, x, apply, mesh)
+            seq = []
+            for m in range(x.shape[0]):
+                h = x[m]
+                for blocks in stages:
+                    h = apply(blocks, h)
+                seq.append(h)
+        assert seg.n == 3
+        assert float((got - torch.stack(seq)).abs().max()) < 1e-5
+        outs[str(dev)] = got.cpu()
+    scale = float(outs["cpu"].abs().max())
+    diff = float((outs[str(cuda_device)] - outs["cpu"]).abs().max())
+    assert diff <= 1e-5 * scale, (diff, scale)
+
+
+@pytest.mark.cuda
+def test_distributed_cli_on_nccl_equals_the_plain_run(cuda_device, tmp_path,
+                                                      capsys):
+    """The training CLI on the card in a one-rank NCCL group: every loss
+    and the final state bit for bit the run without the flag."""
+    import json
+    from repro_torch.checkpointing import checkpoint as ckpt
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.train import reduced_config
+    from repro_torch.models import build_model, get_config
+    from repro_torch.train import make_train_state
+    outs, states = [], []
+    cfg = reduced_config(get_config("gemma3-1b"))
+    for tag, extra in (("a", ["--distributed"]), ("b", [])):
+        d = str(tmp_path / tag)
+        assert train_cli.main(["--arch", "gemma3-1b", "--reduced",
+                               "--steps", "3", "--batch", "2", "--seq",
+                               "64", "--ckpt-every", "3", "--ckpt-dir", d,
+                               *extra]) == 0
+        outs.append(capsys.readouterr().out)
+        model = build_model(cfg, device=cuda_device)
+        template = make_train_state(model, torch.Generator(
+            device=cuda_device).manual_seed(5))
+        state, _, step = ckpt.restore(d, template)
+        assert step == 3
+        states.append({k: v.cpu() for k, v in
+                       ckpt._flatten_with_paths(state)})
+    assert "in a process group (nccl, world size 1)" in outs[0]
+    losses = [json.loads([ln for ln in o.splitlines()
+                          if ln.startswith("losses: ")][0][8:])
+              for o in outs]
+    assert losses[0] == losses[1] and len(losses[0]) == 3
+    for k in states[0]:
+        assert torch.equal(states[0][k], states[1][k]), k

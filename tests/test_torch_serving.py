@@ -181,6 +181,49 @@ def test_reference_reused_slot_keeps_previous_state(pair):
     assert got[1] == solo[0]
 
 
+def test_reference_returns_two_tokens_for_max_new_one(pair):
+    """The reference's third fault (qwen2.5, a 5-token prompt): the step
+    after the prefill appends a token before it checks ``max_new``, so
+    ``max_new=1`` returns 2 tokens (``max_new=3`` returns 3). The port
+    completes such a request at admission with its prefill token, and
+    the tokens it returns are the reference's first ones."""
+    jm, params, tm = pair("qwen2.5-3b")
+    prompt = np.array([5, 9, 2, 7, 3])
+    j1 = JaxEngine(jm, params, 2, 32).run([JaxRequest(0, prompt, 1)])
+    j3 = JaxEngine(jm, params, 2, 32).run([JaxRequest(0, prompt, 3)])
+    assert len(j1[0]) == 2 and len(j3[0]) == 3
+    t1 = Engine(tm, 2, 32).run([Request(0, prompt, 1)])
+    t3 = Engine(tm, 2, 32).run([Request(0, prompt, 3)])
+    assert t1[0] == j1[0][:1] and t3[0] == j3[0]
+
+
+@pytest.mark.parametrize("max_new", [0, 1])
+def test_request_met_by_its_prefill_completes_at_admission(max_new):
+    """No decode step, the slot free at once; the next ``step`` returns
+    the ``Completed`` (also beside a generating slot, whose tokens stay
+    its solo run's)."""
+    m = port_model("gemma3-1b")
+    solo = Engine(m, 2, 64).run([Request(0, np.array([5, 6, 7]), 6)])
+    eng = Engine(m, 2, 64)
+    assert eng.add_request(Request(0, np.array([5, 6, 7]), 6))
+    assert eng.add_request(Request(1, np.array([4, 4, 1]), max_new))
+    assert eng.active.tolist() == [True, False] and eng.req[1] is None
+    pos = eng.pos.copy()
+    done = {c.rid: c.tokens for c in eng.step()}
+    assert list(done) == [1] and len(done[1]) == max_new
+    assert eng.pos[0] == pos[0] + 1
+    while eng.active.any():
+        done.update({c.rid: c.tokens for c in eng.step()})
+    assert done[0] == solo[0]
+    idle = Engine(m, 1, 64)
+    assert idle.add_request(Request(7, np.array([2]), max_new))
+    assert [c.rid for c in idle.step()] == [7] and idle.step() == []
+    got = Engine(m, 1, 64).run([Request(i, np.array([2, i]), max_new)
+                                for i in range(3)])
+    assert sorted(got) == [0, 1, 2]
+    assert all(len(t) == max_new for t in got.values())
+
+
 def _state_of(eng, slot):
     return [t[:, slot].clone() for seg in eng.caches for sub in seg
             for t in sub.values()]

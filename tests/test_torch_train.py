@@ -359,3 +359,106 @@ def test_make_train_state_with_compression_holds_a_zero_residual():
     assert sorted(res) == sorted(state["params"])
     assert all(not t.any() and t.dtype == torch.float32
                for t in res.values())
+
+
+# -------------------------------------------- the encoder through the CLI
+def _hubert_cli(tmp, *args):
+    from repro_torch.launch import train as train_cli
+    return train_cli.main(["--arch", "hubert-xlarge", "--reduced",
+                           "--device", "cpu", "--batch", "2", "--seq", "16",
+                           "--ckpt-dir", tmp, *args])
+
+
+def test_reference_cli_cannot_train_the_encoder(tmp_path):
+    """The reference's CLI feeds the encoder tokens only: its first step
+    raises ``KeyError: 'frame_embeds'``."""
+    from repro.launch import train as jax_train_cli
+    with pytest.raises(KeyError, match="frame_embeds"):
+        jax_train_cli.main(["--arch", "hubert-xlarge", "--reduced",
+                            "--steps", "1", "--batch", "2", "--seq", "16",
+                            "--ckpt-dir", str(tmp_path)])
+
+
+def test_frame_embed_stream_gives_the_specs_and_replays():
+    """``frame_embeds`` of ``train_input_specs``' shape and dtype, drawn
+    from (seed, step): a stream restored to a step yields that step's
+    batch again, bit for bit; another seed or step another draw."""
+    from repro_torch.data import TokenStream
+    from repro_torch.launch.shapes import train_input_specs
+    from repro_torch.launch.train import FrameEmbedStream, reduced_config
+    cfg = reduced_config(get_config("hubert-xlarge"))
+    a = FrameEmbedStream(TokenStream(cfg.vocab, 2, 16, seed=3), cfg)
+    want = train_input_specs(cfg, 2, 16)
+    batches = [a.next() for _ in range(3)]
+    for b in batches:
+        assert sorted(b) == sorted(want)
+        x = b["frame_embeds"]
+        assert x.shape == want["frame_embeds"].shape
+        assert x.dtype == want["frame_embeds"].dtype == torch.bfloat16
+        assert abs(float(x.float().std()) - 1.0) < 0.1
+    assert not torch.equal(batches[0]["frame_embeds"],
+                           batches[1]["frame_embeds"])
+    snap = a.snapshot()
+    assert snap == {"seed": 3, "step": 3}
+    b = FrameEmbedStream(TokenStream(cfg.vocab, 2, 16, seed=3), cfg)
+    b.restore({"seed": 3, "step": 1})
+    again = b.next()
+    for k in again:
+        assert np.array_equal(np.asarray(again[k].float()
+                                         if k == "frame_embeds"
+                                         else again[k]),
+                              np.asarray(batches[1][k].float()
+                                         if k == "frame_embeds"
+                                         else batches[1][k])), k
+    other = FrameEmbedStream(TokenStream(cfg.vocab, 2, 16, seed=4), cfg)
+    assert not torch.equal(other.next()["frame_embeds"],
+                           batches[0]["frame_embeds"])
+
+
+def test_cli_trains_the_encoder_and_resumes_bit_for_bit(tmp_path, capsys):
+    """3 steps of the reduced encoder with finite losses; then 4 steps in
+    one run against 2 steps and a ``--resume`` to 4: the final
+    checkpoints are equal, bit for bit."""
+    from repro_torch.checkpointing import checkpoint as ckpt
+    from repro_torch.launch.train import reduced_config
+    assert _hubert_cli(str(tmp_path / "a"), "--steps", "3") == 0
+    out = capsys.readouterr().out
+    line = [ln for ln in out.splitlines() if ln.startswith("loss: ")][0]
+    first = float(line.split("first=")[1].split()[0])
+    last = float(line.split("last=")[1].split()[0])
+    assert np.isfinite(first) and np.isfinite(last)
+    assert "'steps': 3" in out
+
+    one, two = str(tmp_path / "one"), str(tmp_path / "two")
+    assert _hubert_cli(one, "--steps", "4", "--ckpt-every", "2") == 0
+    assert _hubert_cli(two, "--steps", "2", "--ckpt-every", "2") == 0
+    assert _hubert_cli(two, "--steps", "4", "--ckpt-every", "2",
+                       "--resume") == 0
+    assert "resumed from step 2" in capsys.readouterr().out
+    cfg = reduced_config(get_config("hubert-xlarge"))
+    model = build_model(cfg, device="cpu")
+    template = make_train_state(model, torch.Generator().manual_seed(1))
+    flat = []
+    for d in (one, two):
+        state, data_state, step = ckpt.restore(d, template)
+        assert step == 4 and data_state == {"seed": 0, "step": 4}
+        flat.append({k: v.clone()
+                     for k, v in ckpt._flatten_with_paths(state)})
+    assert sorted(flat[0]) == sorted(flat[1])
+    for k in flat[0]:
+        assert torch.equal(flat[0][k], flat[1][k]), k
+
+
+def test_train_lm_example_twin_learns_on_the_cpu():
+    """``examples/train_lm_torch.py`` (the JAX package's
+    ``examples/train_lm.py`` on the port) with ``--device cpu``: its
+    learning assert holds."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(__file__), "..", "examples",
+                        "train_lm_torch.py")
+    spec = importlib.util.spec_from_file_location("train_lm_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    losses = mod.main(["--device", "cpu", "--steps", "30"])
+    assert len(losses) == 30 and losses[-1] < losses[0]
