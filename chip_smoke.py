@@ -163,10 +163,25 @@ inputs. Each phase prints one JSON line:
                without: losses bit for bit; (e)
                ``examples/train_lm_torch.py --full --steps 100``: its
                learning assert;
- 16. kernels — one line per kernel path: route, source, launches, error
+ 16. examples — the twins of the examples and tools through their
+               ``main(argv)`` at full width, in a temporary directory:
+               ``examples/{quickstart, stream_frames, stream_video,
+               overlap_depth, tune_pipeline, memtrace_pipeline,
+               trace_serving, imagen_dse, serve_lm}_torch.py --full``
+               (1080p frames and 1920-wide plans; gemma3-1b at full
+               config in bf16), every frame they serve at 0 ULP against
+               the plain version, one line per twin with its seconds,
+               frames or tokens and K1 launches by instantiation;
+               ``tools/obs_report_torch.py`` over this run's storm trace
+               and telemetry snapshot, perf reports, memory traces and
+               the twins' own files (``--validate`` and each renderer,
+               exit codes checked); ``tools/debug_memory_torch.py`` on
+               gemma3-1b x train_4k;
+ 17. kernels — one line per kernel path: route, source, launches, error
                and times (the K1 entries with device time, registers,
                spill bytes, shared memory and CTAs per SM, and their
-               launches in the resilient run and in the perf phase).
+               launches in the resilient run, the perf phase and the
+               examples phase).
 
 Tolerance: bitwise (0 ULP) for the stencil kernel at every depth and for
 conv2d, and for every frame the resilient engines serve fault free or
@@ -303,6 +318,13 @@ LA_MICRO, LA_MB_SEQ, LA_PIPE_TOL = 6, 512, 1e-5
 LA_CLI = ["--arch", "gemma3-1b", "--steps", "3", "--batch", "1", "--seq",
           "4096"]
 LA_EXAMPLE_STEPS = 100
+# examples phase: the twins of examples/ and tools/ through main(argv) at
+# full width (--full: 1080p frames, 1920-wide plans, gemma3-1b at full
+# config in bf16), in a temporary directory; debug_memory on gemma3-1b x
+# train_4k
+EX_FULL = ["--full", "--device", "cuda"]
+EX_DEBUG = ["--arch", "gemma3-1b", "--shape", "train_4k", "--top", "10",
+            "--device", "cuda"]
 
 
 def emit(phase: str, **fields) -> None:
@@ -805,7 +827,8 @@ def drain(eng) -> list:
 
 def resilience_phase(dev) -> dict:
     """Phase 11: both engines in resilient mode at 1080p. Returns the
-    kernel's launches in the fault-free resilient run per K1 entry."""
+    kernel's launches in the fault-free resilient run per K1 entry, and
+    the storm's trace and telemetry snapshot."""
     from repro_torch.core import algorithms
     from repro_torch.imaging import FrameEngine, FrameRequest, PlanCache
     from repro_torch.kernels import ref
@@ -1199,8 +1222,12 @@ def resilience_phase(dev) -> dict:
                               "max": max(v) * 1e3}
                           for k, v in screen.items()},
          recompile_after_evict_storm=recompile_s)
+    # the storm's trace and telemetry snapshot, for the examples phase's
+    # obs_report run
     return {"spatial": launches[1][0], "temporal": launches[1][1],
-            "prefetch": sum(launches[2])}
+            "prefetch": sum(launches[2]),
+            "artifacts": {"storm_trace": data,
+                          "storm_telemetry": col.snapshot()}}
 
 
 def _memtrace_job(job: tuple[str, int]) -> dict:
@@ -1216,7 +1243,8 @@ def _memtrace_job(job: tuple[str, int]) -> dict:
 
 def perf_phase(dev, kind: str) -> dict:
     """Phase 12: the perf lab and the memory trace at 1080p, R=8. Returns
-    the K1 launches of the phase by instantiation."""
+    the K1 launches of the phase by instantiation, and its two reports,
+    canny-m's memory trace and the burst's merged trace."""
     import math
     import multiprocessing
     import tempfile
@@ -1504,7 +1532,10 @@ def perf_phase(dev, kind: str) -> dict:
          seconds={"measure": measure_s, "memtrace": memtrace_s,
                   "inject": inject_s,
                   "phase": time.perf_counter() - t_phase})
-    return launches
+    # the reports and a memory trace, for the examples phase's obs_report
+    return {**launches, "artifacts": {
+        "perf_report_d1": reports[1], "perf_report_d2": reports[2],
+        "memtrace_canny": traces[("canny-m", 1)], "burst_trace": merged}}
 
 
 # ----------------------------------------------------------- lm_serve phase
@@ -2308,6 +2339,266 @@ def launch_phase(dev, kind: str) -> None:
          nvidia_smi=smi, phase_seconds=time.perf_counter() - t_phase)
 
 
+def examples_phase(dev, artifacts: dict) -> dict:
+    """Phase 16: the twins of the examples and tools
+    (``examples/*_torch.py``, ``tools/obs_report_torch.py``,
+    ``tools/debug_memory_torch.py``) through their ``main(argv)`` at full
+    width on the card, in a temporary directory: every frame a twin
+    serves held at 0 ULP against the kernel's plain version, obs_report
+    over this run's artifacts (``artifacts``: the storm's trace and
+    telemetry snapshot, the perf reports, a memory trace, the burst's
+    trace) and the twins' own. Returns the K1 launches of the phase by
+    instantiation."""
+    import contextlib
+    import gc
+    import importlib.util
+    import io
+    import tempfile
+
+    from repro_torch.kernels import conv2d_stencil
+    from repro_torch.kernels import stencil_pipeline as sp
+    from repro_torch.kernels import swa_decode as swa
+    from repro_torch.obs import export
+    from repro_torch.obs.memtrace import validate_memtrace
+
+    kern = sp.stencil_pipeline
+    others = (conv2d_stencil.conv2d, swa.swa_decode)
+    others0 = [c.launches for c in others]
+    label = f"cuda:{torch.cuda.current_device()} " \
+            f"({torch.cuda.get_device_name()})"
+    smi = card_info()["nvidia_smi"]
+    total = dict.fromkeys(("spatial", "temporal", "prefetch"), 0)
+    t_phase = time.perf_counter()
+
+    def counts() -> tuple[int, int, int]:
+        return (kern.launches, kern.prefetch_launches,
+                kern.temporal_launches)
+
+    def run(path: str, argv: list[str]):
+        """(main's result, its stdout, seconds, K1 launches by
+        instantiation) of one twin; any exception fails the smoke."""
+        spec = importlib.util.spec_from_file_location(
+            "twin_" + os.path.basename(path)[:-3], os.path.join(ROOT, path))
+        mod = importlib.util.module_from_spec(spec)
+        before = counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                spec.loader.exec_module(mod)
+                result = mod.main(argv)
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001 - reported, then fatal
+            fail(f"{path} {argv}: {type(e).__name__}: {e}\n"
+                 f"{buf.getvalue()[-3000:]}")
+        secs = time.perf_counter() - t0
+        a, p, t = (x - y for x, y in zip(counts(), before))
+        k1 = {"spatial": a - p - t, "temporal": t, "prefetch": p}
+        for k in total:
+            total[k] += k1[k]
+        return result, buf.getvalue(), secs, k1
+
+    def held(dag, x, got) -> tuple[float, float]:
+        return ulp_err(got, sp.stencil_pipeline_plain(
+            dag, {"in": torch.as_tensor(x, device=dev)}))
+
+    def report(twin: str, out: str, secs: float, k1: dict, checks: list,
+               **fields) -> None:
+        if f"device: {label}" not in out:
+            fail(f"{twin} did not print the device {label}: {out[:300]}")
+        err = max((c[0] for c in checks), default=0.0)
+        ulp = max((c[1] for c in checks), default=0.0)
+        if ulp > TOLERANCE_ULP:
+            fail(f"{twin}: a frame {ulp} ULP off the plain version")
+        if checks and sum(k1.values()) == 0:
+            fail(f"{twin} served frames without launching the kernel")
+        emit("examples", twin=twin, seconds=secs, k1_launches=k1,
+             max_abs_err=err, max_ulp=ulp, tolerance_ulp=TOLERANCE_ULP,
+             **fields, last_line=out.strip().splitlines()[-1])
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            # ----------------------------------------------- quickstart
+            r, out, secs, k1 = run("examples/quickstart_torch.py", EX_FULL)
+            report("quickstart", out, secs, k1,
+                   [held(r["dag"], r["img"], r["out"])], frames=1,
+                   shape=list(r["img"].shape), verify_ok=r["report"].ok,
+                   smem_bytes=r["smem_bytes"])
+
+            # -------------------------------------------- stream_frames
+            r, out, secs, k1 = run("examples/stream_frames_torch.py",
+                                   EX_FULL)
+            cache = r["cache"]
+            dag = cache.dag_for("canny-m")
+            checks = [held(dag, r["img"], r["r1"]),
+                      held(dag, r["img"], r["r8"]),
+                      held(dag, r["frame"], r["tiled"])]
+            checks += [held(cache.dag_for(q.pipeline), q.frames["in"],
+                            r["results"][q.rid]) for q in r["requests"]]
+            report("stream_frames", out, secs, k1, checks,
+                   frames=3 + len(r["requests"]),
+                   shape=list(r["frame"].shape),
+                   tiled=list(r["tiled"].shape))
+            del r, cache
+
+            # --------------------------------------------- stream_video
+            r, out, secs, k1 = run("examples/stream_video_torch.py",
+                                   EX_FULL)
+            vid = torch.from_numpy(r["video"]).to(dev)
+            checks = [ulp_err(r["hand"], plain_stream(r["dag"], vid))]
+            for v, got in r["streams"].values():
+                checks.append(ulp_err(got, plain_stream(
+                    r["engine_dag"], torch.from_numpy(v).to(dev))))
+            report("stream_video", out, secs, k1, checks,
+                   frames=sum(len(v) for v, _ in r["streams"].values())
+                   + len(r["video"]), shape=list(r["video"].shape[1:]))
+            del r, vid
+
+            # -------------------------------------------- overlap_depth
+            r, out, secs, k1 = run("examples/overlap_depth_torch.py",
+                                   EX_FULL)
+            if not torch.equal(r["depth1"], r["deep"]):
+                fail("overlap_depth: depth 2 differs from depth 1")
+            report("overlap_depth", out, secs, k1,
+                   [held(r["dag"], r["img"], r["depth1"]),
+                    held(r["dag"], r["img"], r["deep"])], frames=2,
+                   shape=list(r["img"].shape), depths=list(r["depths"]),
+                   budget=r["budget"], best_depth=r["tuning"].best_depth,
+                   depth_rows=r["tuning"].depth_candidates)
+
+            # -------------------------------------------- tune_pipeline
+            r, out, secs, k1 = run("examples/tune_pipeline_torch.py",
+                                   EX_FULL)
+            report("tune_pipeline", out, secs, k1,
+                   [held(r["dag"], f, r["outputs"][i])
+                    for i, f in enumerate(r["frames"])],
+                   frames=len(r["frames"]), shape=list(r["frames"][0].shape),
+                   best=r["tuning"].best.combo,
+                   tune_s=r["tuning"].stats.tune_s)
+
+            # ---------------------------------------- memtrace_pipeline
+            r, out, secs, k1 = run("examples/memtrace_pipeline_torch.py",
+                                   EX_FULL)
+            with open("memtrace_unsharp.json") as f:
+                errs = validate_memtrace(json.load(f))
+            errs += export.validate_trace(
+                export.load_trace("memtrace_pipeline.json"))
+            if errs:
+                fail(f"memtrace_pipeline wrote invalid files: {errs[:3]}")
+            report("memtrace_pipeline", out, secs, k1,
+                   [held(r["dag"], q.frames["in"], r["results"][q.rid])
+                    for q in r["requests"]], frames=len(r["requests"]),
+                   smem_ring_bytes=r["memtrace"]["summary"][
+                       "smem_ring_bytes"],
+                   waste_frac=r["memtrace"]["summary"]["waste_frac"],
+                   tuned_waste_frac=r["memtrace_tuned"]["summary"][
+                       "waste_frac"])
+
+            # -------------------------------------------- trace_serving
+            r, out, secs, k1 = run("examples/trace_serving_torch.py",
+                                   EX_FULL)
+            errs = export.validate_trace(
+                export.load_trace("trace_serving.json"))
+            if errs or not r["excerpt"]:
+                fail(f"trace_serving: trace errors {errs[:3]}, excerpt "
+                     f"{r['excerpt']}")
+            report("trace_serving", out, secs, k1,
+                   [held(r["dag"], q.frames["in"], r["results"][q.rid])
+                    for q in r["requests"]], frames=len(r["requests"]),
+                   spans=sum(1 for e in r["trace"]["traceEvents"]
+                             if e["ph"] == "X"))
+
+            # ----------------------------------------------- imagen_dse
+            r, out, secs, k1 = run("examples/imagen_dse_torch.py", EX_FULL)
+            if sum(k1.values()):
+                fail(f"imagen_dse launched the kernel: {k1}")
+            report("imagen_dse", out, secs, k1, [], frames=0,
+                   designs={n: len(p) for n, p in r["sweeps"].items()},
+                   pareto={n: sum(x.pareto for x in p)
+                           for n, p in r["sweeps"].items()},
+                   plot=r["plot"])
+
+            # ------------------------------------------------- serve_lm
+            r, out, secs, k1 = run("examples/serve_lm_torch.py", EX_FULL)
+            toks, reqs = r["results"], r["requests"]
+            vocab = r["cfg"].vocab
+            if sorted(toks) != sorted(q.rid for q in reqs) or any(
+                    len(toks[q.rid]) != q.max_new
+                    or not all(0 <= x < vocab for x in toks[q.rid])
+                    for q in reqs):
+                fail(f"serve_lm: tokens {toks}")
+            n_tok = sum(map(len, toks.values()))
+            report("serve_lm", out, secs, k1, [], tokens=n_tok,
+                   tokens_per_s=n_tok / r["seconds"], arch=r["cfg"].name,
+                   dtype=r["cfg"].dtype, slots=r["n_slots"],
+                   max_len=r["max_len"],
+                   kv_bytes_per_seq=r["kv_plan"].bytes_per_seq)
+            del r
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # ----------------------------------------------- obs_report
+            files = {}
+            for name, data in artifacts.items():
+                files[name] = f"{name}.json"
+                with open(files[name], "w") as f:
+                    json.dump(data, f)
+            files.update(trace_serving="trace_serving.json",
+                         memtrace_unsharp="memtrace_unsharp.json",
+                         memtrace_pipeline="memtrace_pipeline.json")
+            firing = any(a["firing"]
+                         for a in artifacts["storm_telemetry"]["alerts"])
+            runs = [([files[n], "--validate"], 0) for n in files
+                    if n != "storm_telemetry"]
+            runs += [([files["storm_trace"]], 0),
+                     ([files["storm_trace"], "--slo"], 0),
+                     ([files["trace_serving"], "--top", "5"], 0),
+                     ([files["burst_trace"], "--out", "clean.json"], 0),
+                     ([files["perf_report_d1"]], 0),
+                     ([files["perf_report_d2"], "--perf"], 0),
+                     (["--diff", files["perf_report_d1"],
+                       files["perf_report_d2"]], 0),
+                     ([files["memtrace_canny"], "--memtrace"], 0),
+                     ([files["memtrace_unsharp"]], 0),
+                     ([files["storm_telemetry"], "--alerts"], int(firing))]
+            rcs, secs, lines = [], 0.0, 0
+            k1 = dict.fromkeys(total, 0)
+            for argv, want in runs:
+                rc, out, s_, k1_ = run("tools/obs_report_torch.py", argv)
+                secs += s_
+                k1 = {k: k1[k] + k1_[k] for k in k1}
+                lines += len(out.splitlines())
+                rcs.append(rc)
+                if rc != want:
+                    fail(f"obs_report_torch {argv}: exit {rc}, not {want}: "
+                         f"{out[-2000:]}")
+            emit("examples", twin="obs_report", seconds=secs, runs=len(runs),
+                 k1_launches=k1, exit_codes=rcs, alerts_firing=firing,
+                 lines=lines, artifacts=sorted(files))
+
+            # --------------------------------------------- debug_memory
+            rows, out, secs, k1 = run("tools/debug_memory_torch.py",
+                                      EX_DEBUG)
+            if len(rows) != 10 or "temp GiB: not known" not in out \
+                    or f"on {label}" not in out:
+                fail(f"debug_memory: {out[-2000:]}")
+            emit("examples", twin="debug_memory", seconds=secs,
+                 k1_launches=k1, command=" ".join(EX_DEBUG), top=[
+                     {"bytes": b, "dtype": dt, "shape": list(sh), "op": op,
+                      "module": m} for b, dt, sh, op, m in rows[:3]],
+                 last_line=out.strip().splitlines()[-1])
+        finally:
+            os.chdir(cwd)
+    emit("examples", part="total", k1_launches=total,
+         kernel_launches_in_phase=dict(zip(
+             ("conv2d", "swa_decode"),
+             [c.launches - n for c, n in zip(others, others0)])),
+         nvidia_smi=smi, phase_seconds=time.perf_counter() - t_phase)
+    return total
+
+
 def _registers(lib: str, pattern: str) -> dict | None:
     """ptxas's registers and spill bytes of the one entry function of
     library ``lib`` whose mangled name holds ``pattern``."""
@@ -2733,7 +3024,10 @@ def main() -> None:
     # ----------------------- 15. launch helpers, distributed/, dry run
     launch_phase(dev, kind)
 
-    # --------------------------------------------------- 16. kernels line
+    # ------------------------------------- 16. the examples' and tools' twins
+    ex = examples_phase(dev, {**res["artifacts"], **perf["artifacts"]})
+
+    # --------------------------------------------------- 17. kernels line
     share: dict[str, float] = {}
     for p in per.values():
         share[p["bound_by"]] = share.get(p["bound_by"], 0.0) + p["bound_ms"]
@@ -2743,6 +3037,7 @@ def main() -> None:
         "replaces": "src/repro/kernels/stencil_pipeline.py:423",
         "launches": launches, "launches_resilience": res["spatial"],
         "launches_perf": perf["spatial"],
+        "launches_examples": ex["spatial"],
         "max_abs_err": max_err, "max_ulp": max_ulp,
         "ms": sum(p["ms"] for p in per.values()),
         "device_ms": sum(p["device_ms"] for p in per.values()),
@@ -2763,6 +3058,7 @@ def main() -> None:
         "launches": k1c["launches"],
         "launches_resilience": res["temporal"],
         "launches_perf": perf["temporal"],
+        "launches_examples": ex["temporal"],
         "max_abs_err": max(k1c_err, k1c["max_abs_err"]),
         "max_ulp": max(k1c_ulp, k1c["max_ulp"]), "ms": k1c["ms"],
         "device_ms": k1c["device_ms"],
@@ -2779,6 +3075,7 @@ def main() -> None:
         "launches": k1d["launches"],
         "launches_resilience": res["prefetch"],
         "launches_perf": perf["prefetch"],
+        "launches_examples": ex["prefetch"],
         "max_abs_err": k1d["max_abs_err"],
         "max_ulp": k1d["max_ulp"], "ms": k1d["ms"],
         **{k: k1d[k] for k in ("device_ms", "device_ms_depth1",

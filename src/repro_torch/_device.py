@@ -22,6 +22,15 @@ def resolve_device(device: str | torch.device) -> torch.device:
     return dev
 
 
+def device_label(device: torch.device) -> str:
+    """``device`` as an entry point prints it: a card with its name."""
+    if device.type == "cuda":
+        index = device.index if device.index is not None \
+            else torch.cuda.current_device()
+        return f"cuda:{index} ({torch.cuda.get_device_name(index)})"
+    return str(device)
+
+
 def synchronize(device: torch.device) -> None:
     """Wait for the device's queued work (a no-op on the CPU)."""
     if device.type == "cuda":

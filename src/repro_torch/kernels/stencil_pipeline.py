@@ -640,13 +640,16 @@ class StencilPipelineKernel:
     then B must be 1). CPU tensors take the plain version; CUDA tensors
     launch the kernel on the current stream, and ``launches`` counts
     those launches; ``prefetch_launches`` counts those at prefetch depth
-    >= 2 (the prefetch instantiations) among them.
+    >= 2 (the prefetch instantiations) among them, and
+    ``temporal_launches`` those of programs with frame rings at depth 1
+    (the temporal instantiation); the rest launched the spatial one.
     """
     name = "stencil_pipeline"
 
     def __init__(self):
         self.launches = 0
         self.prefetch_launches = 0
+        self.temporal_launches = 0
 
     def __call__(self, program: StencilProgram,
                  feeds: Sequence[torch.Tensor],
@@ -706,6 +709,8 @@ class StencilPipelineKernel:
         _check(lib, rc, "launch")
         self.launches += 1
         self.prefetch_launches += program.prefetch_depth > 1
+        self.temporal_launches += bool(program.states) and \
+            program.prefetch_depth == 1
         if program.frame_outs:
             return outs[0], dict(zip(program.frame_outs, outs[1:]))
         return outs[0]

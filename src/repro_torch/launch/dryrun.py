@@ -34,8 +34,10 @@ default, or the reference's logical ``pod`` (16, 16) / ``multipod``
     each attention ring and the whole recurrent states).
   * ``coll_bytes`` — ``{}``. The reference parses collectives out of the
     compiled HLO (``collective_bytes``); eager PyTorch on one card has no
-    such program and no counterpart (``tools/debug_memory.py``, which
-    reads compiled HLO, has none either). The collective term is zero.
+    such program and no counterpart. The collective term is zero.
+    (``tools/debug_memory.py`` reads compiled HLO too; its twin,
+    ``tools/debug_memory_torch.py``, runs the cell's step on meta under
+    a dispatch mode instead.)
 
 The port stores some leaves in float32 where the reference's
 ``_cast_params`` casts every float32 leaf of two or more dims (its

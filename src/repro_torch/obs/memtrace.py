@@ -262,10 +262,17 @@ def validate_memtrace(data) -> list[str]:
 def memtrace_text(data: dict) -> str:
     """Terminal table of a ``memtrace/v1`` dict: per buffer its ring rows
     (``alloc``), peak occupancy, waste, port pressure and stalls."""
+    s = data.get("summary", {})
+    # the port's artifacts carry the kernel's shared-memory rings; the JAX
+    # package's render as the JAX package renders them
+    port = "smem_ring_bytes" in s
+    depth = f"  depth={data.get('prefetch_depth')}" if port else ""
+    smem = (f"shared-memory rings {s.get('smem_ring_bytes', 0)} B a CTA "
+            f"(prefetch {s.get('prefetch_ring_bytes', 0)} B), "
+            if port else "")
     head = (f"memtrace {data.get('pipeline')}  "
             f"{data.get('h')}x{data.get('w')}  R={data.get('rows_per_step')}"
-            f"  depth={data.get('prefetch_depth')}"
-            f"  cycles/frame={data.get('cycles')}")
+            f"{depth}  cycles/frame={data.get('cycles')}")
     rows = [head,
             f"{'buffer':<18} {'kind':<11} {'mem':>5} {'P':>2} "
             f"{'alloc':>6} {'peak':>5} {'waste%':>7} {'acc/P':>6} "
@@ -278,13 +285,10 @@ def memtrace_text(data: dict) -> str:
             f"{100.0 * b['waste']['waste_frac']:>6.1f}% "
             f"{b.get('port_pressure_peak', 0.0):>6.2f} "
             f"{b.get('conflict_cycles', 0):>6}")
-    s = data.get("summary", {})
     rows.append(
         f"summary: {s.get('n_buffers', 0)} buffers, "
         f"alloc {s.get('alloc_bytes', 0)} B, peak {s.get('peak_bytes', 0)} B "
-        f"({100.0 * s.get('waste_frac', 0.0):.1f}% waste), "
-        f"shared-memory rings {s.get('smem_ring_bytes', 0)} B a CTA "
-        f"(prefetch {s.get('prefetch_ring_bytes', 0)} B), "
+        f"({100.0 * s.get('waste_frac', 0.0):.1f}% waste), {smem}"
         f"worst port pressure {s.get('worst_port_pressure', 0.0):.2f}, "
         f"{s.get('conflict_cycles', 0)} conflict cycles")
     return "\n".join(rows)

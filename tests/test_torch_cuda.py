@@ -995,3 +995,30 @@ def test_distributed_cli_on_nccl_equals_the_plain_run(cuda_device, tmp_path,
     assert losses[0] == losses[1] and len(losses[0]) == 3
     for k in states[0]:
         assert torch.equal(states[0][k], states[1][k]), k
+
+
+@pytest.mark.cuda
+def test_launch_counts_split_by_instantiation(cuda_device):
+    """``prefetch_launches`` counts the prefetch instantiations,
+    ``temporal_launches`` the temporal one at depth 1, and the rest of
+    ``launches`` the spatial one (the smoke's examples phase reads them
+    so)."""
+    kern = sp.stencil_pipeline
+    x = torch.from_numpy(_frames(3, 4, 37, 53)).to(cuda_device)
+    spatial = sp.build_program(algorithms.unsharp_m(), 37, 53, 8, frames=4)
+    deep = sp.build_program(algorithms.unsharp_m(), 37, 53, 8, frames=4,
+                            prefetch_depth=2)
+    dag = algorithms.VIDEO_ALGORITHMS["tdenoise-t"]()
+    zero = sp.init_frame_state(dag.temporal_depths(), 37, 53, cuda_device)
+    temporal = [sp.build_program(dag, 37, 53, 8, frames=4,
+                                 prefetch_depth=d) for d in (1, 2)]
+    runs = [(spatial, (1, 0, 0)), (deep, (1, 1, 0)),
+            (temporal[0], (1, 0, 1)), (temporal[1], (1, 1, 0))]
+    for prog, want in runs:
+        before = (kern.launches, kern.prefetch_launches,
+                  kern.temporal_launches)
+        kern(prog, [x], [zero[p] for p in prog.states])
+        torch.cuda.synchronize()
+        got = (kern.launches - before[0], kern.prefetch_launches
+               - before[1], kern.temporal_launches - before[2])
+        assert got == want, (prog.dag.name, prog.prefetch_depth)
