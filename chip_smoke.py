@@ -177,14 +177,33 @@ inputs. Each phase prints one JSON line:
                the twins' own files (``--validate`` and each renderer,
                exit codes checked); ``tools/debug_memory_torch.py`` on
                gemma3-1b x train_4k;
- 17. kernels — one line per kernel path: route, source, launches, error
+ 17. expr    — stage functions written in torch, lowered to
+               instructions that the kernel's expression body runs, at
+               1080p, B=4, R=8: (a) the bare form of the 7 spatial
+               pipelines (every payload replaced by its eager function)
+               at depths 1 and 2 and of the 4 video pipelines in chunks
+               of 4 over random frame-ring states, each equal to the
+               payload form and the plain version; (b) the fuzz
+               harness's DAGs, seeds 0-7, convolutions as payloads and
+               lowered, spatial and temporal, against the plain version;
+               (c) the main path: a user pipeline through a resilient
+               FrameEngine (fault free, every frame on the primary rung)
+               and its temporal form through a resilient VideoEngine, the
+               kernel's counts set to 0 just before and read just after;
+               (d) per pipeline the expression form's times (per call and
+               on the device) beside the payload form's, its plain and
+               bound times, instructions, registers of the file, shared
+               memory and CTAs per SM; ptxas's registers and spill bytes
+               of every instantiation;
+ 18. kernels — one line per kernel path: route, source, launches, error
                and times (the K1 entries with device time, registers,
                spill bytes, shared memory and CTAs per SM, and their
                launches in the resilient run, the perf phase and the
-               examples phase).
+               examples phase; the expression entry with the payload
+               form's times beside its own).
 
-Tolerance: bitwise (0 ULP) for the stencil kernel at every depth and for
-conv2d, and for every frame the resilient engines serve fault free or
+Tolerance: bitwise (0 ULP) for the stencil kernel at every depth, with
+payload and expression stages, and for conv2d, and for every frame the resilient engines serve fault free or
 off the spatial reference rung (the reference rung is the kernel's plain
 version); 32 ULP for a video stream resumed from rings the reference
 rung rebuilt, and 8 ULP in the storm, as the JAX package's resilience
@@ -224,6 +243,11 @@ from repro_torch.launch.mesh import H100_BF16_DENSE_FLOPS  # noqa: E402
 from repro_torch.launch.dryrun import attention_flops  # noqa: E402
 
 TOLERANCE_ULP = 0
+# the expression body against eager PyTorch on the card where the two
+# round differently (core/expr.py): sum and mean add in another order (the
+# card's mean is the sum times the float32 reciprocal of the count), exp,
+# log and tanh; ULP at the array's scale
+EXPR_BOUND_ULP = 4
 SHAPES = [(37, 53), (5, 48), (320, 480), (1080, 1920)]
 SERVE_H, SERVE_W, SERVE_B, SERVE_R = 1080, 1920, 4, 8
 REQUESTS_PER_PIPELINE = 8
@@ -2599,6 +2623,317 @@ def examples_phase(dev, artifacts: dict) -> dict:
     return total
 
 
+def user_pipeline(temporal: bool = False):
+    """A pipeline of plain torch stage functions, as a user of the DSL
+    writes one (no built-in payload): a gradient magnitude, a peak test
+    with a clamp and a 3x3 box mean of the peaks (a peak density, held to
+    EXPR_BOUND_ULP: the card's eager mean sums in its own order); the
+    temporal form first takes a pixel's rise above the darkest of its
+    last three frames (a slice of the time axis), kept above 0.05."""
+    from repro_torch.core.dsl import Pipeline
+
+    def grad(w):
+        win = w[next(iter(w))]
+        gx = win[..., 1, 2] - win[..., 1, 0]
+        gy = win[..., 2, 1] - win[..., 0, 1]
+        return torch.sqrt(gx * gx + gy * gy + 1e-6)
+
+    def peak(w):
+        win = w["grad"]
+        c = win[..., 1, 1]
+        return torch.where(c >= win.amax((-2, -1)), torch.clamp(c, 0.0, 1.0),
+                           0.0)
+
+    def density(w):
+        return w["peak"].mean((-2, -1))
+
+    def motion(w):
+        win = w["in"]
+        d = win[..., -1, 0, 0] - win[..., :3, 0, 0].amin(-1)
+        return torch.where(d > 0.05, d, 0.0)
+
+    p = Pipeline("user-t" if temporal else "user")
+    x = p.input("in")
+    src = p.stage("motion", [(x, 4, 1, 1)], motion) if temporal else x
+    g = p.stage("grad", [(src, 3, 3)], grad)
+    k = p.stage("peak", [(g, 3, 3)], peak)
+    d = p.stage("density", [(k, 3, 3)], density)
+    p.output("out", [(d, 1, 1)])
+    return p.build()
+
+
+OPS_KINDS = ("exact", "transcendental", "sums", "divide")
+
+
+def ops_pipeline(kind: str = "exact"):
+    """With the user pipelines, every instruction of the expression body,
+    one kind of rounding a pipeline: producers "a" (the pixel) and "b" (a
+    neighbour), then ``exact``: a quotient of two pixels, products,
+    comparisons, logic, where, abs, max, min, negation and a constant
+    stage (a copy), equal to eager PyTorch on the card bit for bit; or,
+    held to EXPR_BOUND_ULP, ``transcendental``: exp, log and tanh;
+    ``sums``: a sum and a mean over a 3x3 window; ``divide``: a division
+    by a Python scalar (eager CUDA multiplies by its reciprocal)."""
+    from repro_torch.core.dsl import Pipeline
+
+    def first(w):
+        return w["in"][..., 0, 0]
+
+    def exact(w):
+        u, v = w["a"][..., 0, 0], w["b"][..., 0, 0]
+        keep = ((u < v) & (u <= 0.75)) | ~(u == v) & (v != 0.5) \
+            | (u * v > 0.25) & (u >= 0.5)
+        return torch.where(keep, -(u / (v + 1.0)), torch.abs(u - v)) \
+            + torch.maximum(u, v) - torch.minimum(u, v)
+
+    def transcendental(w):
+        u, v = w["a"][..., 0, 0], w["b"][..., 0, 0]
+        return torch.exp(u) + torch.log(v + 0.5) + torch.tanh(u - v)
+
+    def sums(w):
+        win = w["a"]
+        return win.sum((-2, -1)) - win.mean((-2, -1))
+
+    def divide(w):
+        return w["a"][..., 0, 0] / 7.0
+
+    p = Pipeline(f"ops-{kind}")
+    x = p.input("in")
+    a = p.stage("a", [(x, 1, 1)], first)
+    fn = {"exact": exact, "transcendental": transcendental, "sums": sums,
+          "divide": divide}[kind]
+    if kind in ("sums", "divide"):
+        out = p.stage("s", [(a, 3, 3) if kind == "sums" else (a, 1, 1)], fn)
+    else:
+        b = p.stage("b", [(x, 1, 2)], first)
+        out = p.stage("s", [(a, 1, 1), (b, 1, 1)], fn)
+    if kind == "exact":
+        k = p.stage("k", [(x, 1, 1)],
+                    lambda w: torch.full_like(w["in"][..., 0, 0], 0.25))
+        out = p.stage("o", [(out, 1, 1), (k, 1, 1)],
+                      lambda w: w["s"][..., 0, 0] + w["k"][..., 0, 0])
+    p.output("out", [(out, 1, 1)])
+    return p.build()
+
+
+def expr_phase(dev, mem_rate: float, flop_rate: float, sms: int) -> dict:
+    """Phase 17: user-written stage functions through the kernel's
+    expression body (K1 with kExpr). Returns the kernels-line entry."""
+    from repro_torch.core import algorithms, expr, fuzz
+    from repro_torch.core.codegen import compile_pipeline
+    from repro_torch.imaging import FrameEngine, FrameRequest, PlanCache
+    from repro_torch.kernels import stencil_pipeline as sp
+    from repro_torch.resilience import ResilienceConfig
+    from repro_torch.video import VideoEngine, VideoFrame
+    kern = sp.stencil_pipeline
+    names = sorted(algorithms.ALGORITHMS)
+    vnames = sorted(algorithms.VIDEO_ALGORITHMS)
+    max_err, max_ulp, cases = 0.0, 0.0, 0
+    bounded = {}                     # where -> ULP, the checks held to a bound
+    xops = set()                     # the instructions the phase ran
+    rng = np.random.RandomState(SEED + 17)
+
+    def check(got, exp, where, bound=TOLERANCE_ULP):
+        nonlocal max_err, max_ulp, cases
+        err, ulp = ulp_err(got, exp)
+        if ulp > bound:
+            fail(f"expr {where}: differs by {ulp} ULP (abs {err}; "
+                 f"bound {bound})")
+        max_err = max(max_err, err)
+        if bound == TOLERANCE_ULP:
+            max_ulp = max(max_ulp, ulp)
+        else:
+            bounded[where] = ulp
+        cases += 1
+
+    def launch(dag, x, states, depth=1, plan=None):
+        """(program, output, plain output) of ``dag`` over ``x``."""
+        prog = sp.build_program(dag, SERVE_H, SERVE_W, SERVE_R,
+                                frames=x.shape[0], prefetch_depth=depth,
+                                poison_prefetch=depth > 1,
+                                alloc_buffers=plan.alloc.buffers
+                                if plan else None)
+        for ex in prog.exprs.values():
+            xops.update(expr.XOPS[int(word) & 255] for word in ex.code[:, 0])
+        before = kern.expr_launches
+        got = kern(prog, [x], states)
+        torch.cuda.synchronize()
+        if bool(prog.exprs) != (kern.expr_launches == before + 1):
+            fail(f"expr {dag.name}: the expression instantiation launched "
+                 f"{kern.expr_launches - before} times")
+        inputs = {"in": x}
+        exp, _ = sp.video_pipeline_plain(dag, {
+            **inputs, **sp.tap_feeds(dag, inputs,
+                                     dict(zip(prog.states, states)),
+                                     x.shape[0])})
+        return prog, got, exp
+
+    def states_for(dag):
+        depths = dag.temporal_depths()
+        return [torch.from_numpy(rng.rand(depths[p] - 1, SERVE_H, SERVE_W)
+                                 .astype(np.float32)).to(dev)
+                for p in sorted(depths, key=dag.topo_order.index)]
+
+    # (a) the bare forms: the 7 spatial pipelines at depths 1 and 2 and
+    # the 4 video pipelines in chunks of 4 over random frame-ring states,
+    # each equal to the payload form and the plain version
+    progs = {}
+    for name in names + vnames:
+        dag = (algorithms.ALGORITHMS.get(name)
+               or algorithms.VIDEO_ALGORITHMS[name])()
+        bare = expr.bare_pipeline(dag)
+        plan = compile_pipeline(dag, SERVE_W)
+        x = torch.from_numpy(frames(17000 + cases, SERVE_B, SERVE_H,
+                                    SERVE_W)).to(dev)
+        states = states_for(dag)
+        for depth in (1, 2):
+            pp, got_p, _ = launch(dag, x, states, depth, plan)
+            bp, got_b, exp = launch(bare, x, states, depth, plan)
+            where = f"{name} depth {depth}"
+            check(got_b, exp, where + " bare vs plain")
+            check(got_b, got_p, where + " bare vs payload")
+            if depth == 1:
+                progs[name] = (pp, bp, x, states)
+
+    # (b) the fuzz DAGs, seeds 0-7: convolutions as payloads and lowered,
+    # spatial and temporal
+    for seed in range(8):
+        for conv in (algorithms.conv_fn, fuzz.bare_conv):
+            for temporal in (False, True):
+                dag = fuzz.random_pipeline(seed, conv, temporal=temporal)
+                x = torch.from_numpy(frames(17500 + seed, SERVE_B, SERVE_H,
+                                            SERVE_W)).to(dev)
+                _, got, exp = launch(dag, x, states_for(dag))
+                check(got, exp, f"{dag.name} ({conv.__name__})")
+
+    # (c) every instruction of the expression body: the ops pipelines at
+    # depths 1 and 2 (the user pipelines below take sqrt and the rest)
+    x = torch.from_numpy(frames(17800, SERVE_B, SERVE_H, SERVE_W)).to(dev)
+    for kind in OPS_KINDS:
+        dag = ops_pipeline(kind)
+        for depth in (1, 2):
+            _, got, exp = launch(dag, x, [], depth)
+            check(got, exp, f"{dag.name} depth {depth}",
+                  TOLERANCE_ULP if kind == "exact" else EXPR_BOUND_ULP)
+
+    # (d) the main path: a user pipeline through a resilient FrameEngine
+    # (fault free) and its temporal form through a resilient VideoEngine,
+    # the kernel's counts set to 0 just before and read just after
+    spatial, temporal = user_pipeline(), user_pipeline(temporal=True)
+    for dag in (spatial, temporal):
+        for ex in sp.build_program(dag, SERVE_H, SERVE_W, SERVE_R
+                                   ).exprs.values():
+            xops.update(expr.XOPS[int(word) & 255] for word in ex.code[:, 0])
+    if xops != set(expr.XOPS):
+        fail(f"expr: the phase runs no {sorted(set(expr.XOPS) - xops)}")
+    cache = PlanCache(pipelines={spatial.name: lambda: spatial,
+                                 temporal.name: lambda: temporal},
+                      device=dev)
+    feng = FrameEngine(cache=cache, max_batch=SERVE_B,
+                       rows_per_step=SERVE_R, tile_shape=(SERVE_H, SERVE_W),
+                       resilience=ResilienceConfig())
+    veng = VideoEngine(cache=cache, chunk=VIDEO_CHUNK, rows_per_step=SERVE_R,
+                       resilience=ResilienceConfig(), device=dev)
+    feng.cache.executor_for(spatial.name, SERVE_H, SERVE_W, batch=SERVE_B,
+                            rows_per_step=SERVE_R)
+    frame_in = list(frames(17900, 2 * SERVE_B, SERVE_H, SERVE_W))
+    streams = {j: frames(17950 + j, STREAM_FRAMES, SERVE_H, SERVE_W)
+               for j in range(STREAMS_PER_PIPELINE)}
+    kern.launches = kern.prefetch_launches = kern.temporal_launches = 0
+    kern.expr_launches = 0
+    t0 = time.perf_counter()
+    for i, f in enumerate(frame_in):
+        if feng.submit(FrameRequest(rid=i, pipeline=spatial.name,
+                                    frames={"in": f})) is not True:
+            fail(f"expr: request {i} refused")
+    served = {c.rid: c for c in drain(feng)}
+    sids = {veng.open_stream(temporal.name, SERVE_H, SERVE_W): j
+            for j in streams}
+    vdone = {j: [] for j in streams}
+    for t in range(0, STREAM_FRAMES, VIDEO_CHUNK):
+        for sid, j in sids.items():
+            for f in streams[j][t:t + VIDEO_CHUNK]:
+                if veng.submit(VideoFrame(sid, {"in": f})) is not True:
+                    fail(f"expr: stream {sid} refused a frame")
+        for c in drain(veng):
+            vdone[sids[c.stream]].append(c)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    main_launches = {"expr": kern.expr_launches, "total": kern.launches,
+                     "temporal": kern.temporal_launches}
+    if kern.expr_launches == 0 or kern.expr_launches != kern.launches:
+        fail(f"expr: the main path launched the expression instantiation "
+             f"{kern.expr_launches} of {kern.launches} times")
+    rungs = {c.rung for c in served.values()} | {
+        c.rung for cs in vdone.values() for c in cs}
+    if sorted(served) != list(range(len(frame_in))) or rungs != {"default"} \
+            or feng.metrics.fallback_frames or veng.metrics.fallback_frames \
+            or feng.metrics.executor_retries or veng.metrics.executor_retries:
+        fail(f"expr: fault-free user pipelines served rungs {sorted(rungs)}")
+    for i, f in enumerate(frame_in):
+        x = torch.from_numpy(f).to(dev)
+        check(served[i].output, sp.stencil_pipeline_plain(spatial, {"in": x}),
+              f"served user frame {i}", EXPR_BOUND_ULP)
+    for j, cs in vdone.items():
+        if [c.index for c in cs] != list(range(STREAM_FRAMES)):
+            fail(f"expr: stream {j} delivered {[c.index for c in cs]}")
+        want = plain_stream(temporal, torch.from_numpy(streams[j]).to(dev))
+        check(torch.stack([c.output for c in cs]), want,
+              f"user stream {j}", EXPR_BOUND_ULP)
+
+    # (e) times: the expression form beside the payload form, per
+    # pipeline, at depth 1 (the 7 at B=4, the 4 in chunks of 4)
+    per = {}
+    for name, (pp, bp, x, states) in progs.items():
+        def run_p():
+            kern(pp, [x], states)
+
+        def run_b():
+            kern(bp, [x], states)
+        nbytes, ops = sp.launch_work(bp, SERVE_B)
+        t_bytes, t_ops = nbytes / mem_rate * 1e3, ops / flop_rate * 1e3
+        bare = expr.bare_pipeline(pp.dag)
+        per[name] = {
+            "ms": cuda_ms(run_b, iters=10),
+            "device_ms": device_ms(run_b, 10)[0],
+            "payload_ms": cuda_ms(run_p, iters=10),
+            "payload_device_ms": device_ms(run_p, 10)[0],
+            "plain_ms": cuda_ms(lambda: sp.video_pipeline_plain(bare, {
+                "in": x, **sp.tap_feeds(bare, {"in": x},
+                                        dict(zip(bp.states, states)),
+                                        SERVE_B)}), iters=3, warmup=1),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "ops": ops,
+            "instructions": int(len(bp.code)),
+            "registers": max(e.n_regs for e in bp.exprs.values()),
+            **k1_resources(bp, SERVE_B, sms)}
+    ptxas = {k: _registers("stencil_pipeline", v)
+             for k, v in K1_INSTANCES.items()}
+    sums = {k: sum(per[n][k] for n in names)
+            for k in ("ms", "device_ms", "payload_ms", "payload_device_ms",
+                      "plain_ms", "bound_ms")}
+    vsums = {k: sum(per[n][k] for n in vnames)
+             for k in ("ms", "device_ms", "payload_ms", "payload_device_ms",
+                       "plain_ms", "bound_ms")}
+    emit("expr", kernel="stencil_pipeline (expression)", cases=cases,
+         shape=[SERVE_H, SERVE_W], batch=SERVE_B, rows_per_step=SERVE_R,
+         chunk=VIDEO_CHUNK, depths=[1, 2], fuzz_seeds=list(range(8)),
+         main_path_launches=main_launches, serve_s=serve_s,
+         user_frames=len(frame_in),
+         user_stream_frames=STREAM_FRAMES * len(streams),
+         max_abs_err=max_err, max_ulp=max_ulp, tolerance_ulp=TOLERANCE_ULP,
+         bounded_max_ulp=max(bounded.values()), bound_ulp=EXPR_BOUND_ULP,
+         bounded_ulp=bounded, instructions=sorted(xops),
+         ptxas=ptxas, spatial=sums, video=vsums, per_pipeline=per)
+    return {"launches": main_launches["expr"], "max_abs_err": max_err,
+            "max_ulp": max_ulp, "bounded_max_ulp": max(bounded.values()),
+            "bound_ulp": EXPR_BOUND_ULP, **sums,
+            "video": vsums,
+            "ptxas": {k: v for k, v in ptxas.items() if k.endswith("expr")},
+            "bound_by": "bytes" if all(per[n]["bound_by"] == "bytes"
+                                       for n in names) else "operations"}
+
 def _registers(lib: str, pattern: str) -> dict | None:
     """ptxas's registers and spill bytes of the one entry function of
     library ``lib`` whose mangled name holds ``pattern``."""
@@ -2607,10 +2942,14 @@ def _registers(lib: str, pattern: str) -> dict | None:
     return hits[0] if len(hits) == 1 else None
 
 
-# the fused kernel's instantiations: <kTemporal, kPrefetch>
-K1_INSTANCES = {"spatial": "ILb0ELb0E", "temporal": "ILb1ELb0E",
-                "spatial_prefetch": "ILb0ELb1E",
-                "temporal_prefetch": "ILb1ELb1E"}
+# the fused kernel's instantiations: <kTemporal, kPrefetch, kExpr>
+K1_INSTANCES = {"spatial": "ILb0ELb0ELb0E", "temporal": "ILb1ELb0ELb0E",
+                "spatial_prefetch": "ILb0ELb1ELb0E",
+                "temporal_prefetch": "ILb1ELb1ELb0E",
+                "spatial_expr": "ILb0ELb0ELb1E",
+                "temporal_expr": "ILb1ELb0ELb1E",
+                "spatial_prefetch_expr": "ILb0ELb1ELb1E",
+                "temporal_prefetch_expr": "ILb1ELb1ELb1E"}
 
 
 def k1_resources(prog, frames_: int, sms: int) -> dict:
@@ -3027,7 +3366,10 @@ def main() -> None:
     # ------------------------------------- 16. the examples' and tools' twins
     ex = examples_phase(dev, {**res["artifacts"], **perf["artifacts"]})
 
-    # --------------------------------------------------- 17. kernels line
+    # ------------------------- 17. user stage functions (expression body)
+    kx = expr_phase(dev, mem_rate, flop_rate, sms)
+
+    # --------------------------------------------------- 18. kernels line
     share: dict[str, float] = {}
     for p in per.values():
         share[p["bound_by"]] = share.get(p["bound_by"], 0.0) + p["bound_ms"]
@@ -3091,6 +3433,24 @@ def main() -> None:
                     f"depth 2 (ms_depth4: depth 4; video_*: one "
                     f"chunk-{SERVE_B} launch of each of the 4 video "
                     f"pipelines)",
+    }, {
+        "name": f"{sp.stencil_pipeline.name} (expression)", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/stencil_pipeline.cu",
+        "replaces": "src/repro/kernels/stencil_pipeline.py:423",
+        "replaces_part": "a stage's fn traced into the kernel (:267)",
+        "launches": kx["launches"], "max_abs_err": kx["max_abs_err"],
+        "max_ulp": kx["max_ulp"], "bounded_max_ulp": kx["bounded_max_ulp"],
+        "bound_ulp": kx["bound_ulp"],
+        **{k: kx[k] for k in ("ms", "device_ms", "payload_ms",
+                              "payload_device_ms", "plain_ms", "bound_ms",
+                              "bound_by", "video", "ptxas")},
+        "library_ms": None,
+        "timed_on": f"one B={SERVE_B} {SERVE_H}x{SERVE_W} R={SERVE_R} "
+                    f"batch of the bare form of each of the {len(names)} "
+                    f"pipelines at depth 1 (payload_*: the same batch "
+                    f"through the payload bodies; video: one "
+                    f"chunk-{VIDEO_CHUNK} launch of each of the 4 video "
+                    f"pipelines); launches: the user pipelines' main path",
     }, {
         "name": "conv2d", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/conv2d_stencil.cu",

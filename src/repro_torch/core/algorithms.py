@@ -64,6 +64,13 @@ class Payload:
     def __call__(self, wins: dict[str, torch.Tensor]) -> torch.Tensor:
         return self._fn(wins)
 
+    @property
+    def eager(self) -> Callable:
+        """The plain window function (what a stage written by hand in
+        torch would be; ``expr.bare_pipeline`` runs it through the
+        kernel's expression body)."""
+        return self._fn
+
     def operands(self, keys: list[str], edges: list[Edge]) -> list[int]:
         """In-edge indices in the op's operand order."""
         if self._order is None:

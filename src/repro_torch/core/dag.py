@@ -6,14 +6,19 @@ connects a producer to a consumer and carries the stencil window shape
 on edges (not nodes) because a consumer may read different windows from
 different producers (paper footnote 1).
 
-The compute payload of a stage is a vectorized window function used by both
-the pure-jnp reference executor and the Pallas fused kernel; the scheduler
-itself only ever looks at the graph structure and stencil heights.
+The compute payload of a stage is a vectorized torch window function, used
+by the eager reference executor (the kernel's plain version) and, through
+a built-in ``Payload`` op or its lowering to instructions
+(``core/expr.py``), by the fused CUDA kernel; the scheduler itself only
+ever looks at the graph structure and stencil heights.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Mapping, Sequence
+from typing import TYPE_CHECKING, Callable, Mapping, Sequence
+
+if TYPE_CHECKING:
+    import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,12 +68,18 @@ def window_keys(edges: Sequence[Edge]) -> list[str]:
 class Stage:
     """One pipeline stage.
 
-    ``fn`` maps a dict {producer_name: window array [..., SH, SW]} to the
-    output pixel value(s) with matching leading batch dims. ``fn=None`` is a
-    pure relay (identity on a 1x1 window) used by Darkroom linearization.
+    ``fn`` maps a dict {producer_name: window tensor [..., SH, SW]} (or
+    [..., ST, SH, SW] for a temporal edge) to the output pixel value(s)
+    with matching leading batch dims, in float32. It is a built-in
+    :class:`~repro_torch.core.algorithms.Payload` or any torch function
+    whose aten ops lower to the kernel's expression body
+    (:func:`repro_torch.core.expr.lowerable_ops`: elementwise arithmetic,
+    comparisons and ``where``, reductions and views over window axes).
+    ``fn=None`` is a pure relay (identity on a 1x1 window) used by
+    Darkroom linearization.
     """
     name: str
-    fn: Callable[[Mapping[str, "jax.Array"]], "jax.Array"] | None = None
+    fn: Callable[[Mapping[str, torch.Tensor]], torch.Tensor] | None = None
     is_input: bool = False
     is_output: bool = False
 

@@ -17,9 +17,26 @@ like the spatial axes (frame t reads producer frames t-st+1..t)::
 
     d = p.stage("diff", reads=[(x, 2, 1, 1)], fn=frame_diff_fn)
 
-Stage ``fn`` signatures are vectorized window functions; see dag.Stage —
-windows arrive as [..., sh, sw] for st == 1 and [..., st, sh, sw] for
-st > 1.
+Stage ``fn`` signatures are vectorized torch window functions; see
+dag.Stage — windows arrive as [..., sh, sw] for st == 1 and
+[..., st, sh, sw] for st > 1 (index st - 1 the current frame). A stage
+needs no CUDA: a built-in ``Payload`` runs its own kernel body, and any
+other function is traced once and lowered (``core/expr.py``) to
+instructions the fused kernel runs per pixel. It may index and slice its
+windows, do float32 arithmetic (add, sub, mul, div, neg, abs, sqrt, exp,
+log, tanh, maximum, minimum, clamp, ``** 2``), compare and ``where``,
+and reduce over window axes (amax, amin, sum, mean)::
+
+    def box_peak(w):
+        win = w["in"]
+        c = win[..., 1, 1]
+        return torch.where(c >= win.amax((-2, -1)), c, 0.0)
+
+    pk = p.stage("peak", reads=[(x, 3, 3)], fn=box_peak)
+
+An op that mixes pixels, any other aten op and value-dependent Python
+control flow are refused by ``build_program`` with a ValueError naming
+the stage and the op.
 """
 from __future__ import annotations
 

@@ -18,10 +18,15 @@ This module holds, beside the kernel:
 
   * :func:`build_program` — the per-plan stage table the kernel walks
     (op codes, rings, operand order, float32 constants), and the launch
-    geometry and shared-memory bill;
+    geometry and shared-memory bill. A stage whose function is a built-in
+    :class:`~repro_torch.core.algorithms.Payload` takes its op code; any
+    other torch window function is traced and lowered
+    (:mod:`repro_torch.core.expr`) to instructions that the kernel's
+    expression body runs;
   * :func:`stencil_pipeline_plain` and :func:`video_pipeline_plain` —
     the kernel's plain PyTorch versions: whole-frame, stage by stage,
-    through the same payloads. The CPU tests use them, and
+    through the same payloads (an expression stage's plain version is
+    the user's own function). The CPU tests use them, and
     ``chip_smoke.py`` holds the kernel against them;
   * :data:`stencil_pipeline` — the wrapper. A CPU tensor runs the plain
     version; a CUDA tensor launches the kernel or raises;
@@ -45,6 +50,7 @@ from repro_torch.core.algorithms import (Payload, execute_reference,
 from repro_torch.core.codegen import (PipelinePlan, frame_outputs, tap_name,
                                       temporal_taps)
 from repro_torch.core.dag import PipelineDAG, window_keys
+from repro_torch.core.expr import StageExpr, lower_stage
 from repro_torch.obs import trace
 
 from . import _build
@@ -52,7 +58,7 @@ from . import _build
 # op codes, in the order of ``enum Op`` in csrc/stencil_pipeline.cu
 OPS = ("input", "relay", "conv", "square", "identity", "mag", "prod",
        "nms", "thresh", "unsharp", "xcorr", "denoise_comb", "harris_resp",
-       "tap", "stmean", "frame_diff", "bg_subtract")
+       "tap", "stmean", "frame_diff", "bg_subtract", "expr")
 # operands each payload op reads, and the float32 scalars it takes
 _ARITY = {"conv": 1, "square": 1, "identity": 1, "mag": 2, "prod": 2,
           "nms": 1, "thresh": 1, "unsharp": 2, "xcorr": 2,
@@ -69,18 +75,21 @@ MAX_WTS, MAX_FEEDS, MAX_OUTS, MAX_SRC = 256, 8, 4, 3
 TABLE_INTS = HDR + MAX_STAGES * STAGE_INTS + MAX_RINGS * 2
 (H_NSTAGES, H_R, H_H, H_W, H_STRIP_W, H_HALO_LEFT, H_NCOLS, H_BAND_H,
  H_HALO_UP, H_SMEM_BYTES, H_TEMPORAL, H_DEPTH, H_POISON, H_PAD, H_PITCH,
- H_OSTAGE, H_SLOTS, H_NRINGS, H_VEC, H_THREADS, H_OSYNC) = range(21)
+ H_OSTAGE, H_SLOTS, H_NRINGS, H_VEC, H_THREADS, H_OSYNC, H_EXPR) = range(22)
 (S_OP, S_RING, S_FINAL, S_FEED, S_NSRC, S_WOFF, S_FOUT, S_STATE,
  S_TAPJ) = range(9)
 S_SRC, S_ST, S_SH, S_SW, S_LEAD, S_KIND, S_SYNC = 9, 12, 15, 18, 21, 22, 23
+# an expression stage's first instruction and instruction count, in fields
+# only feeds use otherwise
+S_XOFF, S_XLEN = S_FEED, S_TAPJ
 
 # stage bodies, in the order of ``enum Kind`` in csrc/stencil_pipeline.cu:
 # a feed (input or history tap), a pointwise op on 1x1 operands, and the
-# window shapes the registered pipelines use, unrolled; anything else
-# takes the generic body
+# window shapes the registered pipelines use, unrolled; any other payload
+# takes the generic body, a lowered stage function the expression body
 KINDS = ("generic", "feed", "point", "conv1x5", "conv5x1", "conv1x3",
          "conv3x1", "conv3x3", "nms3x3", "xcorr18", "stmean4", "stmean8",
-         "stmean333")
+         "stmean333", "expr")
 _POINT_OPS = ("relay", "identity", "square", "mag", "prod", "thresh",
               "unsharp", "denoise_comb", "harris_resp", "bg_subtract",
               "frame_diff")
@@ -97,9 +106,12 @@ SM_SMEM, SMEM_RESERVE, MIN_BLOCKS = 233_472, 1024, 3
 
 
 def stage_kind(op: str, srcs: Sequence[tuple[str, int, int, int]]) -> str:
-    """The kernel body that runs a payload stage of ``op`` over operand
-    windows ``srcs`` [(producer, st, sh, sw)]: an unrolled one for the
-    shapes the registered pipelines use, else ``generic``."""
+    """The kernel body that runs a stage of ``op`` over operand windows
+    ``srcs`` [(producer, st, sh, sw)]: the expression body for a lowered
+    stage function, an unrolled one for the shapes the registered
+    pipelines use, else ``generic``."""
+    if op == "expr":
+        return "expr"
     shapes = [(t, sh, sw) for _, t, sh, sw in srcs]
     if op in _POINT_OPS and all(s[1:] == (1, 1) for s in shapes) and (
             op == "frame_diff" or all(s[0] == 1 for s in shapes)):
@@ -191,7 +203,10 @@ class StencilProgram:
     ``prefetch_bytes`` is the part of ``smem_bytes`` that the feed rings'
     grown rows take at ``prefetch_depth`` >= 2 (0 at depth 1).
     ``rings`` names the table's rings in order: a producer's live ring,
-    or ``(producer, j)`` for its history tap j frames back.
+    or ``(producer, j)`` for its history tap j frames back. ``exprs``
+    holds each expression stage's lowered function, in table order, and
+    ``code`` their instructions, (n, 4) int32, in the same order (the
+    launch copies them to the device once per device, ``device_code``).
     """
     dag: PipelineDAG
     h: int
@@ -210,6 +225,10 @@ class StencilProgram:
     prefetch_depth: int = 1
     prefetch_bytes: int = 0
     rings: tuple = ()
+    exprs: Mapping[str, StageExpr] = dataclasses.field(default_factory=dict)
+    code: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros((0, 4), np.int32))
+    device_code: dict = dataclasses.field(default_factory=dict, repr=False)
 
 
 def _resident(smem: int) -> int:
@@ -265,7 +284,11 @@ def build_program(dag: PipelineDAG, h: int, w: int, rows_per_step: int,
     """Resolve ``dag`` into the kernel's stage table for (h, w) frames.
 
     Operand order is resolved here, once: each payload maps its in-edges
-    (window-key order) to its op's operands. A temporal DAG gets one tap
+    (window-key order) to its op's operands; a stage function that is no
+    payload is lowered (:func:`repro_torch.core.expr.lower_stage`) over
+    its in-edges in window-key order, its instructions appended to the
+    program's ``code`` and its constants to the constant table. A
+    temporal DAG gets one tap
     stage per (producer, j frames back) ahead of the other stages, and
     each producer's rings are laid out oldest tap first, live ring last,
     so an operand's (first ring, st) spans its time window. Stages are
@@ -301,9 +324,9 @@ def build_program(dag: PipelineDAG, h: int, w: int, rows_per_step: int,
     kernel fill with NaN every feed-ring slot a copy writes before any
     read (all but the zero tail that stands for the rows above the band),
     so a read that overtakes its copy shows.
-    Raises ValueError for a DAG the kernel cannot run (unknown payload,
-    table overflow, shared memory over the block limit) and for a depth
-    below 1.
+    Raises ValueError for a DAG the kernel cannot run (a payload with no
+    kernel op, a stage function that does not lower, table overflow,
+    shared memory over the block limit) and for a depth below 1.
     """
     if h < 1 or w < 1:
         raise ValueError(f"frame shape must be positive, got ({h}, {w})")
@@ -378,6 +401,9 @@ def build_program(dag: PipelineDAG, h: int, w: int, rows_per_step: int,
 
     table = np.zeros(TABLE_INTS, np.int32)
     wts: list[float] = []
+    exprs: dict[str, StageExpr] = {}
+    code: list[np.ndarray] = []
+    n_code = 0
     for s, name in enumerate(stages):
         row = table[HDR + s * STAGE_INTS: HDR + (s + 1) * STAGE_INTS]
         row[S_RING] = ring_idx.get(name, -1)
@@ -410,8 +436,15 @@ def build_program(dag: PipelineDAG, h: int, w: int, rows_per_step: int,
             continue
         if st.fn is None:      # relay: identity on the producer's pixel
             op, srcs = "relay", [(ins[0].producer, 1, 1, 1)]
-        else:
+        elif isinstance(st.fn, Payload):
             op, srcs = _payload_operands(dag.name, name, st.fn, ins, wts)
+        else:                  # a torch window function, lowered
+            ex = exprs[name] = lower_stage(dag.name, name, st.fn, ins)
+            op, srcs = "expr", list(ex.operands)
+            row[S_XOFF], row[S_XLEN] = n_code, len(ex.code)
+            code.append(ex.code)
+            n_code += len(ex.code)
+            wts.extend(ex.consts)
         row[S_OP] = OPS.index(op)
         row[S_KIND] = KINDS.index(stage_kind(op, srcs))
         row[S_NSRC] = len(srcs)
@@ -429,16 +462,17 @@ def build_program(dag: PipelineDAG, h: int, w: int, rows_per_step: int,
         off += rows * pitch
     grid_x = -(-w // strip_w)
     band_h = _band_height(h, grid_x, frames, up, r, target_ctas)
-    # temporal programs launch the kernel's temporal instantiation, and
-    # depth >= 2 its prefetch one; the launch clears H_VEC when a tensor
-    # is not 16-byte aligned. A final stage of level 0 (an input wired
-    # to the output) writes the output rows before the first barrier, so
-    # their store ends in one of its own (H_OSYNC).
-    table[:H_OSYNC + 1] = (
+    # temporal programs launch the kernel's temporal instantiation,
+    # depth >= 2 its prefetch one, and a program with an expression stage
+    # its expression one; the launch clears H_VEC when a tensor is not
+    # 16-byte aligned. A final stage of level 0 (an input wired to the
+    # output) writes the output rows before the first barrier, so their
+    # store ends in one of its own (H_OSYNC).
+    table[:H_EXPR + 1] = (
         len(stages), r, h, w, strip_w, left, ncols, band_h, up, smem,
         int(bool(states)), prefetch_depth, int(poison_prefetch),
         pad, pitch, rings_floats, slots, len(ring_rows), int(vec),
-        min(threads, ncols), int(level[final] == 0))
+        min(threads, ncols), int(level[final] == 0), int(bool(exprs)))
     wt = np.zeros(MAX_WTS, np.float32)
     wt[:len(wts)] = wts
     return StencilProgram(dag=dag, h=h, w=w, rows_per_step=r, feeds=feeds,
@@ -448,7 +482,10 @@ def build_program(dag: PipelineDAG, h: int, w: int, rows_per_step: int,
                           grid_y=-(-h // band_h), smem_bytes=smem,
                           prefetch_depth=prefetch_depth,
                           prefetch_bytes=grown,
-                          rings=tuple(sorted(ring_idx, key=ring_idx.get)))
+                          rings=tuple(sorted(ring_idx, key=ring_idx.get)),
+                          exprs=exprs,
+                          code=np.concatenate(code) if code
+                          else np.zeros((0, 4), np.int32))
 
 
 def _payload_operands(pipeline: str, name: str, fn, ins, wts: list
@@ -456,7 +493,7 @@ def _payload_operands(pipeline: str, name: str, fn, ins, wts: list
     """(op, [(producer, st, sh, sw)] in operand order) for a payload
     stage; appends the stage's weights and scalars to ``wts``."""
     where = f"{pipeline}/{name}"
-    if not isinstance(fn, Payload) or fn.op not in _ARITY:
+    if fn.op not in _ARITY:
         raise ValueError(f"{where}: payload {fn!r} has no kernel op")
     if len(ins) > MAX_SRC:
         raise ValueError(f"{where}: {len(ins)} inputs exceed {MAX_SRC}")
@@ -508,10 +545,11 @@ def launch_work(program: StencilProgram, frames: int) -> tuple[int, int]:
     """(bytes, float32 operations) a launch over ``frames`` frames needs
     at least: each input, output and frame-output pixel moved once, each
     history frame of the state read once, each stage's arithmetic done
-    once per pixel (no halo recompute)."""
+    once per pixel (no halo recompute; an expression stage's operations
+    are its lowered function's)."""
     hw = program.h * program.w
     n_stages = int(program.table[H_NSTAGES])
-    ops = 0
+    ops = sum(ex.ops for ex in program.exprs.values())
     for s in range(n_stages):
         row = program.table[HDR + s * STAGE_INTS:]
         ops += _ops_per_pixel(OPS[row[S_OP]], int(row[S_ST]),
@@ -597,14 +635,14 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("stencil_pipeline")
     fn = lib.stencil_pipeline_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.stencil_pipeline_error_string.argtypes = [ctypes.c_int]
         lib.stencil_pipeline_error_string.restype = ctypes.c_char_p
         lib.stencil_pipeline_blocks_per_sm.argtypes = [
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.POINTER(ctypes.c_int)]
+            ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     return lib
 
 
@@ -622,7 +660,7 @@ def blocks_per_sm(program: StencilProgram) -> int:
     temporal = int(program.table[H_TEMPORAL])
     prefetch = int(program.prefetch_depth > 1)
     _check(lib, lib.stencil_pipeline_blocks_per_sm(
-        program.smem_bytes, temporal, prefetch,
+        program.smem_bytes, temporal, prefetch, int(program.table[H_EXPR]),
         int(program.table[H_THREADS]), ctypes.byref(n)),
         "occupancy query")
     return n.value
@@ -643,6 +681,8 @@ class StencilPipelineKernel:
     >= 2 (the prefetch instantiations) among them, and
     ``temporal_launches`` those of programs with frame rings at depth 1
     (the temporal instantiation); the rest launched the spatial one.
+    ``expr_launches`` counts, across all of them, the launches of
+    programs with an expression stage (the expression instantiations).
     """
     name = "stencil_pipeline"
 
@@ -650,6 +690,7 @@ class StencilPipelineKernel:
         self.launches = 0
         self.prefetch_launches = 0
         self.temporal_launches = 0
+        self.expr_launches = 0
 
     def __call__(self, program: StencilProgram,
                  feeds: Sequence[torch.Tensor],
@@ -701,16 +742,24 @@ class StencilPipelineKernel:
         fptrs = (ctypes.c_void_p * MAX_FEEDS)(
             *[t.data_ptr() for t in (*feeds, *states)])
         optrs = (ctypes.c_void_p * MAX_OUTS)(*[t.data_ptr() for t in outs])
+        code = None
+        if program.exprs:
+            buf = program.device_code.get(dev)
+            if buf is None:
+                buf = program.device_code[dev] = torch.from_numpy(
+                    program.code.copy()).to(dev)
+            code = buf.data_ptr()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = lib.stencil_pipeline_launch(
-                program.table.ctypes.data, program.wts.ctypes.data, fptrs,
-                optrs, program.grid_x, program.grid_y, b, stream)
+                program.table.ctypes.data, program.wts.ctypes.data, code,
+                fptrs, optrs, program.grid_x, program.grid_y, b, stream)
         _check(lib, rc, "launch")
         self.launches += 1
         self.prefetch_launches += program.prefetch_depth > 1
         self.temporal_launches += bool(program.states) and \
             program.prefetch_depth == 1
+        self.expr_launches += bool(program.exprs)
         if program.frame_outs:
             return outs[0], dict(zip(program.frame_outs, outs[1:]))
         return outs[0]

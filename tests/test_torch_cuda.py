@@ -6,11 +6,17 @@ JAX oracle). They import nothing of JAX, so they run where the port does:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerance: bitwise for the stencil kernels (any prefetch depth) and
-conv2d. They round every product and sum on their own (``_rn``
-intrinsics, built with ``-fmad=false``) in the plain version's order, and
-the square root is correctly rounded like the plain one's. swa_decode
-sums its dot products in another order: rtol 2e-4, atol 2e-5.
+Tolerance: bitwise for the stencil kernels (any prefetch depth, payload
+and expression stages: the registered pipelines' bare forms and the fuzz
+harness's random DAGs) and conv2d. They round every product and sum on
+their own (``_rn`` intrinsics, built with ``-fmad=false``) in the plain
+version's order, and the square root is correctly rounded like the plain
+one's. The lowering cases of ``tests/test_torch_expr.py`` are bitwise
+too, except sums, means, exp, log and tanh, a division by a number
+against the card's eager version and a float32 ``torch.sqrt`` against
+the CPU's (4 ULP at the array's scale; ``core/expr.py`` says why).
+swa_decode sums its dot products in another order: rtol 2e-4, atol
+2e-5.
 """
 import threading
 
@@ -18,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import algorithms
+from repro_torch.core import algorithms, expr, fuzz
 from repro_torch.core.dsl import Pipeline
 from repro_torch.imaging import FrameEngine, FrameRequest, PlanCache, \
     execute_tiled
@@ -28,6 +34,9 @@ from repro_torch.kernels import swa_decode as swa
 from repro_torch.resilience import ResilienceConfig, RetryPolicy
 from repro_torch.resilience.chaos import ChaosMonkey, install_chaos
 from repro_torch.video import VideoEngine, VideoFrame
+from test_torch_expr import (CASES, CPU_SQRT, DIVIDES_BY_A_NUMBER, NAN_FNS,
+                             assert_bounded, case_frames, case_pipeline,
+                             case_plain)
 
 NAMES = sorted(algorithms.ALGORITHMS)
 VIDEO = sorted(algorithms.VIDEO_ALGORITHMS)
@@ -128,6 +137,145 @@ def test_generic_body_and_vector_io_match_plain_bitwise(cuda_device, name,
             **inputs, **sp.tap_feeds(dag, inputs,
                                      dict(zip(prog.states, states)), 4)})
         assert torch.equal(got, exp), (name, (h, w), r)
+
+
+def _launch_and_plain(dag, x, states_np, r, depth, dev):
+    """(kernel output, plain output, program) of ``dag`` over frames
+    ``x`` and frame-ring states at R = ``r`` and prefetch depth
+    ``depth`` (the grown slots poisoned with NaN)."""
+    h, w = x.shape[1:]
+    prog = sp.build_program(dag, h, w, r, frames=x.shape[0],
+                            prefetch_depth=depth, poison_prefetch=depth > 1)
+    states = [torch.from_numpy(a).to(dev) for a in states_np]
+    got = sp.stencil_pipeline(prog, [x], states)
+    torch.cuda.synchronize()
+    inputs = {"in": x}
+    exp, _ = sp.video_pipeline_plain(dag, {
+        **inputs, **sp.tap_feeds(dag, inputs, dict(zip(prog.states, states)),
+                                 x.shape[0])})
+    return got, exp, prog
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [1, 2])
+@pytest.mark.parametrize("name", NAMES + VIDEO + ["generic", "tgeneric"])
+def test_bare_forms_match_payload_forms_bitwise(cuda_device, name, depth):
+    """Every computed stage through the expression body (each payload
+    replaced by its eager function) equals the payload form and the plain
+    version bit for bit, at a scalar and a float4 width, R = 1 and 8,
+    batches and chunks of 4 over random frame-ring states; each bare
+    launch takes the expression instantiation."""
+    dag = (algorithms.ALGORITHMS.get(name) or algorithms.VIDEO_ALGORITHMS.get(
+        name) or (lambda: _generic(name == "tgeneric")))()
+    bare = expr.bare_pipeline(dag)
+    depths = dag.temporal_depths()
+    rng = np.random.RandomState(23)
+    for h, w in [(37, 53), (45, 1920)]:
+        for r in (1, 8):
+            x = torch.from_numpy(_frames(r, 4, h, w)).to(cuda_device)
+            states = [rng.rand(depths[p] - 1, h, w).astype(np.float32)
+                      for p in sorted(depths, key=dag.topo_order.index)]
+            got_p, exp, _ = _launch_and_plain(dag, x, states, r, depth,
+                                              cuda_device)
+            before = sp.stencil_pipeline.expr_launches
+            got_b, exp_b, prog = _launch_and_plain(bare, x, states, r, depth,
+                                                   cuda_device)
+            assert sp.stencil_pipeline.expr_launches == before + 1
+            assert prog.exprs and sp.blocks_per_sm(prog) >= 1
+            where = (name, (h, w), r, depth)
+            assert torch.equal(got_b, got_p), where
+            assert torch.equal(got_b, exp_b) and torch.equal(exp_b, exp), \
+                where
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [1, 2])
+@pytest.mark.parametrize("temporal", [False, True])
+@pytest.mark.parametrize("form", ["payload", "bare"])
+def test_fuzz_dags_match_plain_bitwise(cuda_device, form, temporal, depth):
+    """The fuzz harness's random DAGs (seeds 0-7) through the expression
+    body equal the plain version bit for bit."""
+    conv = fuzz.bare_conv if form == "bare" else algorithms.conv_fn
+    rng = np.random.RandomState(24)
+    for seed in range(8):
+        dag = fuzz.random_pipeline(seed, conv, temporal=temporal)
+        depths = dag.temporal_depths()
+        for h, w in [(37, 53), (45, 1920)]:
+            for r in (1, 8):
+                x = torch.from_numpy(_frames(seed, 4, h, w)).to(cuda_device)
+                states = [rng.rand(depths[p] - 1, h, w).astype(np.float32)
+                          for p in sorted(depths, key=dag.topo_order.index)]
+                got, exp, _ = _launch_and_plain(dag, x, states, r, depth,
+                                                cuda_device)
+                assert torch.equal(got, exp), (seed, (h, w), r, depth)
+
+
+def _launch_case(dag, x, states, r, depth, dev):
+    """(kernel output, program) of a lowering case's pipeline on the
+    card; the launch takes the expression instantiation."""
+    b, h, w = x.shape
+    prog = sp.build_program(dag, h, w, r, frames=b, prefetch_depth=depth,
+                            poison_prefetch=depth > 1)
+    before = sp.stencil_pipeline.expr_launches
+    got = sp.stencil_pipeline(prog, [torch.from_numpy(x).to(dev)],
+                              [torch.from_numpy(a).to(dev) for a in states])
+    torch.cuda.synchronize()
+    assert sp.stencil_pipeline.expr_launches == before + 1
+    return (got[0] if prog.frame_outs else got).cpu(), prog
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_lowering_cases_match_the_eager_function_on_the_card(cuda_device,
+                                                             name):
+    """Each lowering case of ``tests/test_torch_expr.py`` (together they
+    take every instruction of the expression body) as stage "s" of a
+    small pipeline, at a scalar and a float4 width, R = 1 and 8, depths 1
+    and 2: equal to the eager function run on the card and on the CPU
+    over the same frames, bit for bit but where the module docstring
+    says."""
+    fn, shapes, bounded = CASES[name]
+    dag = case_pipeline(name)
+    b = 1 if dag.temporal_depths() else 4
+    for seed, (h, w) in enumerate([(37, 53), (45, 1920)]):
+        x, states = case_frames(dag, b, h, w, seed)
+        for r, depth in [(1, 1), (8, 1), (8, 2)]:
+            got, prog = _launch_case(dag, x, states, r, depth, cuda_device)
+            card = case_plain(dag, prog, torch.from_numpy(x).to(cuda_device),
+                              [torch.from_numpy(a).to(cuda_device)
+                               for a in states]).cpu()
+            cpu = case_plain(dag, prog, torch.from_numpy(x),
+                             [torch.from_numpy(a) for a in states])
+            for exp, loose in ((card, name in DIVIDES_BY_A_NUMBER),
+                               (cpu, name in CPU_SQRT)):
+                if bounded or loose:
+                    assert_bounded(got, exp)
+                else:
+                    assert torch.equal(got, exp), (name, (h, w), r, depth)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", sorted(NAN_FNS))
+def test_max_and_min_pass_a_nan_on_the_card(cuda_device, op):
+    dag = case_pipeline(f"nan-{op}", NAN_FNS[op],
+                        {"a": (1, 3, 3), "b": (1, 1, 1)})
+    x, _ = case_frames(dag, 4, 45, 1920, 0)
+    x.reshape(-1)[::31] = np.nan
+    got, prog = _launch_case(dag, x, [], 8, 1, cuda_device)
+    exp = case_plain(dag, prog, torch.from_numpy(x).to(cuda_device), [])
+    assert 0 < int(exp.isnan().sum()) < exp.numel()
+    torch.testing.assert_close(got, exp.cpu(), rtol=0, atol=0,
+                               equal_nan=True)
+
+
+@pytest.mark.cuda
+def test_a_stage_that_does_not_lower_is_refused_on_the_card(cuda_device):
+    p = Pipeline("opaque")
+    x = p.input("in")
+    y = p.stage("y", [(x, 1, 1)], lambda w: torch.sin(w["in"][..., 0, 0]))
+    p.output("out", [(y, 1, 1)])
+    with pytest.raises(ValueError, match="opaque/y: aten op aten.sin"):
+        sp.make_executor(p.build(), 16, 32, device=cuda_device)
 
 
 @pytest.mark.cuda

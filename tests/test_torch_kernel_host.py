@@ -22,6 +22,13 @@ has no barrier, so its CTAs run with all their threads (one after
 another); the tile kernel keeps ``blockDim`` 1 and NaN-filled shared
 memory. ``float2``/``float4`` are plain aligned structs there.
 
+The expression body (stage functions lowered to instructions,
+``core/expr.py``) runs under the same shim: the bare form of every
+registered pipeline (each payload replaced by its own eager function)
+must equal its payload form bit for bit, at every geometry, width and
+depth the payload forms are held at, and the fuzz harness's random DAGs
+(``repro_torch.core.fuzz``) must equal the plain version.
+
 This checks the kernel's index math, rings, halos, masks and operand
 table at launch geometries the card's tests do not reach; the threads
 themselves are checked on the card (``tests/test_torch_cuda.py``,
@@ -37,7 +44,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import algorithms, compile_pipeline
+from repro_torch.core import algorithms, compile_pipeline, expr, fuzz
 from repro_torch.core.dsl import Pipeline
 from repro_torch.kernels import conv2d_stencil
 from repro_torch.kernels import stencil_pipeline as sp
@@ -84,15 +91,20 @@ def generic_pipeline(temporal: bool = False):
     return p.build()
 
 
-def _dag(name):
+def _dag(name, bare=False):
+    """The named pipeline; ``bare``: every payload replaced by its eager
+    function, so every computed stage takes the expression body."""
     if name == "tinternal":
-        return _tinternal()
-    if name == "tstmean":
-        return _tstmean()
-    if name in ("generic", "tgeneric"):
-        return generic_pipeline(name == "tgeneric")
-    return (algorithms.ALGORITHMS.get(name)
-            or algorithms.VIDEO_ALGORITHMS[name])()
+        dag = _tinternal()
+    elif name == "tstmean":
+        dag = _tstmean()
+    elif name in ("generic", "tgeneric"):
+        dag = generic_pipeline(name == "tgeneric")
+    else:
+        dag = (algorithms.ALGORITHMS.get(name)
+               or algorithms.VIDEO_ALGORITHMS[name])()
+    return expr.bare_pipeline(dag) if bare else dag
+
 
 _SHIM = r"""
 #include <algorithm>
@@ -113,6 +125,7 @@ static float* g_smem;
 #define __forceinline__ inline
 struct alignas(8) float2 { float x, y; };
 struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(16) int4 { int x, y, z, w; };
 static float4 make_float4(float x, float y, float z, float w) {
   return float4{x, y, z, w};
 }
@@ -124,6 +137,7 @@ static float4 make_float4(float x, float y, float z, float w) {
 static float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 static float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 static float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
+static float __fdiv_rn(float a, float b) { volatile float r = a / b; return r; }
 static float __fsqrt_rn(float a) { return std::sqrt(a); }
 static float __int_as_float(int i) { float f; memcpy(&f, &i, 4); return f; }
 // cp.async: a copy joins the open group (the last one) and lands when a
@@ -157,8 +171,8 @@ static void cp_async_wait(int n) {
 _LAUNCHER = r"""
 // returns the CTAs that ended with copies no wait covered
 extern "C" int host_launch(const int* table, const float* wts,
-                           const void* const* feeds, void* const* outs,
-                           int gx, int gy, int gz) {
+                           const void* code, const void* const* feeds,
+                           void* const* outs, int gx, int gy, int gz) {
   int unwaited = 0;
   Program P;
   memcpy(P.hdr, table, sizeof(P.hdr));
@@ -184,7 +198,8 @@ extern "C" int host_launch(const int* table, const float* wts,
         std::fill(sm.begin(), sm.end(), NAN);
         g_groups.assign(1, {});
         blockIdx = Dim3{x, y, z};
-        pick_kernel(P.hdr[H_TEMPORAL], P.hdr[H_DEPTH] > 1)(P, F, O);
+        pick_kernel(P.hdr[H_TEMPORAL], P.hdr[H_DEPTH] > 1, P.hdr[H_EXPR])(
+            P, F, O, static_cast<const int4*>(code));
         // a copy never waited for: the CTA ended before it landed
         for (const auto& g : g_groups) unwaited += !g.empty();
       }
@@ -250,7 +265,7 @@ def _host_library(tmp_path_factory, source: str, launcher: str):
 @pytest.fixture(scope="module")
 def host_kernel(tmp_path_factory):
     lib = _host_library(tmp_path_factory, "stencil_pipeline.cu", _LAUNCHER)
-    lib.host_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+    lib.host_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
     lib.host_launch.restype = ctypes.c_int
 
     def launch(prog, x, states=()):
@@ -262,7 +277,9 @@ def host_kernel(tmp_path_factory):
             *[a.ctypes.data for a in (x, *states)])
         optrs = (ctypes.c_void_p * sp.MAX_OUTS)(
             *[a.ctypes.data for a in outs])
+        code = np.ascontiguousarray(prog.code)
         assert lib.host_launch(prog.table.ctypes.data, prog.wts.ctypes.data,
+                               code.ctypes.data if len(code) else None,
                                feeds, optrs, prog.grid_x, prog.grid_y,
                                x.shape[0]) == 0, "copies no wait covered"
         if prog.frame_outs:
@@ -501,6 +518,8 @@ def test_stage_bodies_cover_the_registered_pipelines():
                 for r in rows[:int(prog.table[sp.H_NSTAGES])]]
     for name in NAMES + VIDEO:
         assert "generic" not in kinds(_dag(name)), name
+        assert "expr" not in kinds(_dag(name)), name
+        assert set(kinds(_dag(name, bare=True))) <= {"feed", "expr"}, name
     assert kinds(_dag("canny-m")) == [
         "feed", "conv1x5", "conv5x1", "conv3x1", "conv1x3", "point",
         "nms3x3", "nms3x3", "point"]
@@ -612,6 +631,149 @@ def test_host_compiled_temporal_kernel_vector_widths(host_kernel, name):
                 for p in prog.frame_outs:
                     assert np.array_equal(got_frames[p], frames[p].numpy())
             assert np.array_equal(got, out.numpy()), (name, (h, w), r)
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3, 4])
+@pytest.mark.parametrize("strip_w,target_ctas", [
+    (sp.STRIP_W, sp.TARGET_CTAS),   # the executors' geometry
+    (16, 64),                       # many strips and bands
+    (7, 1),                         # strips narrower than the halo
+])
+@pytest.mark.parametrize("name", NAMES + ["generic"])
+def test_host_compiled_bare_kernel_matches_payload_form(host_kernel, name,
+                                                        strip_w, target_ctas,
+                                                        depth):
+    """Every computed stage through the expression body: the bare form
+    equals the payload form and the plain version bit for bit, at the
+    payload forms' geometries, depths 1 to 4 (the grown slots poisoned
+    at R = 1 and 3)."""
+    dag, bare = _dag(name), _dag(name, bare=True)
+    rng = np.random.RandomState(17)
+    for h, w in [(37, 53), (5, 48), (70, 40)]:
+        plan = compile_pipeline(dag, w)
+        for r in (1, 3, 8):
+            x = rng.rand(3, h, w).astype(np.float32)
+            x[1] = 0.0                                    # idle slot
+            got = {}
+            for form, d in (("payload", dag), ("bare", bare)):
+                prog = sp.build_program(d, h, w, r, frames=3,
+                                        alloc_buffers=plan.alloc.buffers,
+                                        strip_w=strip_w,
+                                        target_ctas=target_ctas,
+                                        prefetch_depth=depth,
+                                        poison_prefetch=depth > 1 and r != 8)
+                assert int(prog.table[sp.H_EXPR]) == (form == "bare")
+                got[form] = host_kernel(prog, x)
+            exp = sp.stencil_pipeline_plain(bare, {"in": torch.from_numpy(x)})
+            where = (name, (h, w), r, depth, strip_w, target_ctas)
+            assert np.array_equal(got["bare"], got["payload"]), where
+            assert np.array_equal(got["bare"], exp.numpy()), where
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3, 4])
+@pytest.mark.parametrize("strip_w,target_ctas", [
+    (sp.STRIP_W, sp.TARGET_CTAS),   # the executors' geometry
+    (7, 1),                         # strips narrower than the halo
+])
+@pytest.mark.parametrize("name", TEMPORAL)
+def test_host_compiled_bare_temporal_kernel_matches_payload_form(
+        host_kernel, name, strip_w, target_ctas, depth):
+    """The temporal table's bare forms (temporal windows, a select on
+    axis -3 in frame_diff, frame outputs) over random frame-ring states
+    and chunks of 4 equal the payload forms and the plain version."""
+    dag, bare = _dag(name), _dag(name, bare=True)
+    depths = dag.temporal_depths()
+    rng = np.random.RandomState(18)
+    batches = (1,) if name == "tinternal" else (1, 4)
+    for h, w in [(13, 24), (37, 53)]:
+        plan = compile_pipeline(dag, w)
+        for r in (1, 3, 8):
+            for b in batches:
+                x = rng.rand(b, h, w).astype(np.float32)
+                states = [rng.rand(depths[p] - 1, h, w).astype(np.float32)
+                          for p in sorted(depths,
+                                          key=dag.topo_order.index)]
+                got = {}
+                for form, d in (("payload", dag), ("bare", bare)):
+                    prog = sp.build_program(
+                        d, h, w, r, frames=b,
+                        alloc_buffers=plan.alloc.buffers, strip_w=strip_w,
+                        target_ctas=target_ctas, prefetch_depth=depth,
+                        poison_prefetch=depth > 1)
+                    got[form] = host_kernel(prog, x, states)
+                inputs = {"in": torch.from_numpy(x)}
+                ring = {p: torch.from_numpy(a)
+                        for p, a in zip(prog.states, states)}
+                out, frames = sp.video_pipeline_plain(
+                    bare, {**inputs, **sp.tap_feeds(bare, inputs, ring, b)})
+                where = (name, (h, w), r, b, depth, strip_w, target_ctas)
+                if prog.frame_outs:
+                    for p in prog.frame_outs:
+                        assert np.array_equal(got["bare"][1][p],
+                                              got["payload"][1][p]), where
+                        assert np.array_equal(got["bare"][1][p],
+                                              frames[p].numpy()), where
+                    got = {k: v[0] for k, v in got.items()}
+                assert np.array_equal(got["bare"], got["payload"]), where
+                assert np.array_equal(got["bare"], out.numpy()), where
+
+
+@pytest.mark.parametrize("name", NAMES + TEMPORAL)
+def test_host_compiled_bare_kernel_vector_and_scalar_widths(host_kernel,
+                                                            name):
+    """The bare forms at the executors' geometry over vector (1920) and
+    scalar widths equal the payload forms bit for bit."""
+    dag, bare = _dag(name), _dag(name, bare=True)
+    depths = dag.temporal_depths()
+    rng = np.random.RandomState(19)
+    b = 1 if name == "tinternal" else 2
+    for h, w in [(12, 1920), (9, 130), (11, 53)]:
+        plan = compile_pipeline(dag, w)
+        for r in (3, 8):
+            x = rng.rand(b, h, w).astype(np.float32)
+            states = [rng.rand(depths[p] - 1, h, w).astype(np.float32)
+                      for p in sorted(depths, key=dag.topo_order.index)]
+            got = []
+            for d in (dag, bare):
+                prog = sp.build_program(d, h, w, r, frames=b,
+                                        alloc_buffers=plan.alloc.buffers,
+                                        target_ctas=10**6)
+                res = host_kernel(prog, x, states)
+                got.append(res[0] if prog.frame_outs else res)
+            assert np.array_equal(got[0], got[1]), (name, (h, w), r)
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+@pytest.mark.parametrize("temporal", [False, True])
+@pytest.mark.parametrize("form", ["payload", "bare"])
+def test_host_compiled_fuzz_dags_match_plain(host_kernel, form, temporal,
+                                             depth):
+    """The fuzz harness's random DAGs (seeds 0-7; blends, drains and the
+    temporal convolution lowered, the spatial convolutions as payloads or
+    lowered) equal the plain version bit for bit at scalar and vector
+    widths, R = 1, 3, 8, chunks of 4 for the temporal variant."""
+    rng = np.random.RandomState(20)
+    conv = fuzz.bare_conv if form == "bare" else algorithms.conv_fn
+    for seed in range(8):
+        dag = fuzz.random_pipeline(seed, conv, temporal=temporal)
+        depths = dag.temporal_depths()
+        b = 4 if temporal else 2
+        for h, w in [(37, 53), (20, 40), (12, 1920)]:
+            for r in (1, 3, 8):
+                x = rng.rand(b, h, w).astype(np.float32)
+                states = [rng.rand(depths[p] - 1, h, w).astype(np.float32)
+                          for p in sorted(depths, key=dag.topo_order.index)]
+                prog = sp.build_program(dag, h, w, r, frames=b,
+                                        target_ctas=64, prefetch_depth=depth,
+                                        poison_prefetch=depth > 1)
+                inputs = {"in": torch.from_numpy(x)}
+                ring = {p: torch.from_numpy(a)
+                        for p, a in zip(prog.states, states)}
+                out, _ = sp.video_pipeline_plain(
+                    dag, {**inputs, **sp.tap_feeds(dag, inputs, ring, b)})
+                got = host_kernel(prog, x, states)
+                assert np.array_equal(got, out.numpy()), \
+                    (seed, (h, w), r, depth)
 
 
 @pytest.fixture(scope="module")
