@@ -15,7 +15,8 @@ inputs. Each phase prints one JSON line:
                limit;
   2. build   — the kernels built with nvcc for sm_90a, the time, and
                ptxas's registers and spill bytes (per instantiation of
-               the fused stencil kernel);
+               the fused stencil kernel's shared library, the four of
+               payload programs);
   3. kernel  — the fused stencil kernel against its plain version for the
                7 pipelines x R in {1, 8} x four frame shapes, single-frame
                and batched (B=4, last slot an idle zero frame);
@@ -177,30 +178,46 @@ inputs. Each phase prints one JSON line:
                the twins' own files (``--validate`` and each renderer,
                exit codes checked); ``tools/debug_memory_torch.py`` on
                gemma3-1b x train_4k;
- 17. expr    — stage functions written in torch, lowered to
-               instructions that the kernel's expression body runs, at
-               1080p, B=4, R=8: (a) the bare form of the 7 spatial
-               pipelines (every payload replaced by its eager function)
-               at depths 1 and 2 and of the 4 video pipelines in chunks
-               of 4 over random frame-ring states, each equal to the
-               payload form and the plain version; (b) the fuzz
-               harness's DAGs, seeds 0-7, convolutions as payloads and
-               lowered, spatial and temporal, against the plain version;
-               (c) the main path: a user pipeline through a resilient
-               FrameEngine (fault free, every frame on the primary rung)
-               and its temporal form through a resilient VideoEngine, the
-               kernel's counts set to 0 just before and read just after;
-               (d) per pipeline the expression form's times (per call and
-               on the device) beside the payload form's, its plain and
-               bound times, instructions, registers of the file, shared
-               memory and CTAs per SM; ptxas's registers and spill bytes
-               of every instantiation;
+ 17. expr    — stage functions written in torch, lowered and compiled
+               into the kernel (each program with such a stage launches
+               from a library of its own: csrc/ plus its generated
+               bodies), at 1080p, B=4, R=8: (0) every library the phase
+               launches from but the user pipelines', built in one
+               parallel nvcc wave first (a line with the wave's seconds,
+               each library's nvcc seconds and the ptxas report of those
+               built in this run, and the registers and local memory of
+               every library's entry, read from the loaded library); (a)
+               the bare form of the 7 spatial pipelines (every payload
+               replaced by its eager function) at depths 1 and 2 and of
+               the 4 video pipelines in chunks of 4 over random
+               frame-ring states, each equal to the payload form and the
+               plain version; (b) the fuzz harness's DAGs, seeds 0-7,
+               convolutions as payloads and lowered, spatial and
+               temporal, against the plain version; (c) four ops
+               pipelines that with the user pipelines run every
+               instruction; (d) the main path: a user pipeline through a
+               resilient FrameEngine (fault free, every frame on the
+               primary rung) and its temporal form through a resilient
+               VideoEngine, both with an attempt timeout shorter than
+               one nvcc build and their libraries not yet built, so
+               that the first submit and open_stream build them outside
+               the fallback ladder (the first frame's and first chunk's
+               wall seconds, builds included), the kernel's counts set
+               to 0 just before and read just after; (e) per pipeline
+               the expression form's times (per call and on the device)
+               beside the payload form's, its plain and bound times,
+               instructions, its library's registers and local memory,
+               shared memory and CTAs per SM beside the payload form's;
+               the shared library's registers and local memory per
+               instantiation;
  18. kernels — one line per kernel path: route, source, launches, error
                and times (the K1 entries with device time, registers,
                spill bytes, shared memory and CTAs per SM, and their
                launches in the resilient run, the perf phase and the
                examples phase; the expression entry with the payload
-               form's times beside its own).
+               form's times beside its own, the build wave's seconds,
+               its libraries' registers and local memory, and the user
+               pipelines' first frame and chunk).
 
 Tolerance: bitwise (0 ULP) for the stencil kernel at every depth, with
 payload and expression stages, and for conv2d, and for every frame the resilient engines serve fault free or
@@ -248,6 +265,10 @@ TOLERANCE_ULP = 0
 # card's mean is the sum times the float32 reciprocal of the count), exp,
 # log and tanh; ULP at the array's scale
 EXPR_BOUND_ULP = 4
+# the user pipelines' attempt timeout on the expr phase's main path: under
+# one nvcc build of a library (4.4 s or more on the H100's host), well
+# over a first frame whose libraries are built
+ATTEMPT_TIMEOUT_S = 3.0
 SHAPES = [(37, 53), (5, 48), (320, 480), (1080, 1920)]
 SERVE_H, SERVE_W, SERVE_B, SERVE_R = 1080, 1920, 4, 8
 REQUESTS_PER_PIPELINE = 8
@@ -2717,14 +2738,17 @@ def ops_pipeline(kind: str = "exact"):
 
 
 def expr_phase(dev, mem_rate: float, flop_rate: float, sms: int) -> dict:
-    """Phase 17: user-written stage functions through the kernel's
-    expression body (K1 with kExpr). Returns the kernels-line entry."""
+    """Phase 17: user-written stage functions through K1's expression
+    body (each program's generated bodies in a library of its own).
+    Returns the kernels-line entry."""
     from repro_torch.core import algorithms, expr, fuzz
     from repro_torch.core.codegen import compile_pipeline
     from repro_torch.imaging import FrameEngine, FrameRequest, PlanCache
+    from repro_torch.kernels import _build
     from repro_torch.kernels import stencil_pipeline as sp
-    from repro_torch.resilience import ResilienceConfig
+    from repro_torch.resilience import ResilienceConfig, RetryPolicy
     from repro_torch.video import VideoEngine, VideoFrame
+    t_phase = time.perf_counter()
     kern = sp.stencil_pipeline
     names = sorted(algorithms.ALGORITHMS)
     vnames = sorted(algorithms.VIDEO_ALGORITHMS)
@@ -2746,13 +2770,16 @@ def expr_phase(dev, mem_rate: float, flop_rate: float, sms: int) -> dict:
             bounded[where] = ulp
         cases += 1
 
-    def launch(dag, x, states, depth=1, plan=None):
-        """(program, output, plain output) of ``dag`` over ``x``."""
-        prog = sp.build_program(dag, SERVE_H, SERVE_W, SERVE_R,
-                                frames=x.shape[0], prefetch_depth=depth,
+    def program(dag, n, depth=1, plan=None):
+        return sp.build_program(dag, SERVE_H, SERVE_W, SERVE_R, frames=n,
+                                prefetch_depth=depth,
                                 poison_prefetch=depth > 1,
                                 alloc_buffers=plan.alloc.buffers
                                 if plan else None)
+
+    def launch(dag, x, states, depth=1, plan=None):
+        """(program, output, plain output) of ``dag`` over ``x``."""
+        prog = program(dag, x.shape[0], depth, plan)
         for ex in prog.exprs.values():
             xops.update(expr.XOPS[int(word) & 255] for word in ex.code[:, 0])
         before = kern.expr_launches
@@ -2774,15 +2801,46 @@ def expr_phase(dev, mem_rate: float, flop_rate: float, sms: int) -> dict:
                                  .astype(np.float32)).to(dev)
                 for p in sorted(depths, key=dag.topo_order.index)]
 
+    pipelines = {}
+    for name in names + vnames:
+        dag = (algorithms.ALGORITHMS.get(name)
+               or algorithms.VIDEO_ALGORITHMS[name])()
+        pipelines[name] = (dag, expr.bare_pipeline(dag),
+                           compile_pipeline(dag, SERVE_W))
+    fuzz_dags = [fuzz.random_pipeline(seed, conv, temporal=temporal)
+                 for seed in range(8)
+                 for conv in (algorithms.conv_fn, fuzz.bare_conv)
+                 for temporal in (False, True)]
+    spatial, temporal = user_pipeline(), user_pipeline(temporal=True)
+
+    # (0) every library the phase launches from, built in one wave before
+    # the checks: one per program with an expression stage (its generated
+    # bodies, the one instantiation it launches). The user pipelines' are
+    # left to the main path, which meets them unbuilt as a user does.
+    wave = [program(bare, SERVE_B, d, plan)
+            for _, bare, plan in pipelines.values() for d in (1, 2)]
+    wave += [program(g, SERVE_B) for g in fuzz_dags]
+    wave += [program(ops_pipeline(k), SERVE_B, d) for k in OPS_KINDS
+             for d in (1, 2)]
+    t0 = time.perf_counter()
+    built = sp.build_libraries(wave)
+    build_s = time.perf_counter() - t0
+    # library -> its entry's registers and local memory, read from the
+    # loaded library in this run whether nvcc built it now or earlier
+    generated = {prog.library_spec.name: sp.kernel_attributes(prog)
+                 for prog in wave if prog.exprs}
+    emit("expr", part="build", libraries=len(generated), built=len(built),
+         wall_s=build_s, nvcc_s=sum(built.values()),
+         nvcc_s_max=max(built.values(), default=None),
+         seconds=built, ptxas={n: _build.ptxas(n) for n in built},
+         attributes=generated)
+    wave_libraries = len(generated)
+
     # (a) the bare forms: the 7 spatial pipelines at depths 1 and 2 and
     # the 4 video pipelines in chunks of 4 over random frame-ring states,
     # each equal to the payload form and the plain version
     progs = {}
-    for name in names + vnames:
-        dag = (algorithms.ALGORITHMS.get(name)
-               or algorithms.VIDEO_ALGORITHMS[name])()
-        bare = expr.bare_pipeline(dag)
-        plan = compile_pipeline(dag, SERVE_W)
+    for name, (dag, bare, plan) in pipelines.items():
         x = torch.from_numpy(frames(17000 + cases, SERVE_B, SERVE_H,
                                     SERVE_W)).to(dev)
         states = states_for(dag)
@@ -2797,14 +2855,12 @@ def expr_phase(dev, mem_rate: float, flop_rate: float, sms: int) -> dict:
 
     # (b) the fuzz DAGs, seeds 0-7: convolutions as payloads and lowered,
     # spatial and temporal
-    for seed in range(8):
-        for conv in (algorithms.conv_fn, fuzz.bare_conv):
-            for temporal in (False, True):
-                dag = fuzz.random_pipeline(seed, conv, temporal=temporal)
-                x = torch.from_numpy(frames(17500 + seed, SERVE_B, SERVE_H,
-                                            SERVE_W)).to(dev)
-                _, got, exp = launch(dag, x, states_for(dag))
-                check(got, exp, f"{dag.name} ({conv.__name__})")
+    for i, dag in enumerate(fuzz_dags):
+        x = torch.from_numpy(frames(17500 + i // 4, SERVE_B, SERVE_H,
+                                    SERVE_W)).to(dev)
+        conv = "bare_conv" if i % 4 >= 2 else "conv_fn"
+        _, got, exp = launch(dag, x, states_for(dag))
+        check(got, exp, f"{dag.name} ({conv})")
 
     # (c) every instruction of the expression body: the ops pipelines at
     # depths 1 and 2 (the user pipelines below take sqrt and the rest)
@@ -2818,8 +2874,13 @@ def expr_phase(dev, mem_rate: float, flop_rate: float, sms: int) -> dict:
 
     # (d) the main path: a user pipeline through a resilient FrameEngine
     # (fault free) and its temporal form through a resilient VideoEngine,
-    # the kernel's counts set to 0 just before and read just after
-    spatial, temporal = user_pipeline(), user_pipeline(temporal=True)
+    # the kernel's counts set to 0 just before and read just after. Their
+    # libraries are not built yet and an attempt times out long before
+    # an nvcc build ends, so the first frame is served on the primary
+    # rung only if the builds ran at admission, outside the ladder.
+    users = {sp.build_program(dag, SERVE_H, SERVE_W, SERVE_R,
+                              prefetch_depth=d).library_spec.name
+             for dag in (spatial, temporal) for d in (1, 2)}
     for dag in (spatial, temporal):
         for ex in sp.build_program(dag, SERVE_H, SERVE_W, SERVE_R
                                    ).exprs.values():
@@ -2829,27 +2890,35 @@ def expr_phase(dev, mem_rate: float, flop_rate: float, sms: int) -> dict:
     cache = PlanCache(pipelines={spatial.name: lambda: spatial,
                                  temporal.name: lambda: temporal},
                       device=dev)
+    resilience = ResilienceConfig(retry=RetryPolicy(
+        max_attempts=1, timeout_s=ATTEMPT_TIMEOUT_S))
     feng = FrameEngine(cache=cache, max_batch=SERVE_B,
                        rows_per_step=SERVE_R, tile_shape=(SERVE_H, SERVE_W),
-                       resilience=ResilienceConfig())
+                       resilience=resilience)
     veng = VideoEngine(cache=cache, chunk=VIDEO_CHUNK, rows_per_step=SERVE_R,
-                       resilience=ResilienceConfig(), device=dev)
-    feng.cache.executor_for(spatial.name, SERVE_H, SERVE_W, batch=SERVE_B,
-                            rows_per_step=SERVE_R)
+                       resilience=resilience, device=dev)
     frame_in = list(frames(17900, 2 * SERVE_B, SERVE_H, SERVE_W))
     streams = {j: frames(17950 + j, STREAM_FRAMES, SERVE_H, SERVE_W)
                for j in range(STREAMS_PER_PIPELINE)}
     kern.launches = kern.prefetch_launches = kern.temporal_launches = 0
     kern.expr_launches = 0
+    unbuilt = {n for n in users if n not in _build._LIBS
+               and not (_build.BUILD_DIR / f"lib{n}.so").exists()}
     t0 = time.perf_counter()
     for i, f in enumerate(frame_in):
         if feng.submit(FrameRequest(rid=i, pipeline=spatial.name,
                                     frames={"in": f})) is not True:
             fail(f"expr: request {i} refused")
-    served = {c.rid: c for c in drain(feng)}
+    admit_s = time.perf_counter() - t0
+    served = {c.rid: c for c in feng.step()}
+    first_frame_s = time.perf_counter() - t0
+    served.update((c.rid, c) for c in drain(feng))
+    t1 = time.perf_counter()
     sids = {veng.open_stream(temporal.name, SERVE_H, SERVE_W): j
             for j in streams}
+    open_s = time.perf_counter() - t1
     vdone = {j: [] for j in streams}
+    first_chunk_s = None
     for t in range(0, STREAM_FRAMES, VIDEO_CHUNK):
         for sid, j in sids.items():
             for f in streams[j][t:t + VIDEO_CHUNK]:
@@ -2857,8 +2926,19 @@ def expr_phase(dev, mem_rate: float, flop_rate: float, sms: int) -> dict:
                     fail(f"expr: stream {sid} refused a frame")
         for c in drain(veng):
             vdone[sids[c.stream]].append(c)
+        if first_chunk_s is None:
+            first_chunk_s = time.perf_counter() - t1
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
+    user_built = {n: s for n, s in _build.BUILD_LOG.items() if n in users}
+    generated.update({p.library_spec.name: sp.kernel_attributes(p)
+                      for p in (program(spatial, SERVE_B),
+                                program(temporal, VIDEO_CHUNK))})
+    emit("expr", part="admission", unbuilt_before=len(unbuilt),
+         built=len(user_built), attempt_timeout_s=ATTEMPT_TIMEOUT_S,
+         frame_admit_s=admit_s, first_frame_s=first_frame_s,
+         stream_open_s=open_s, first_chunk_s=first_chunk_s,
+         ptxas={n: _build.ptxas(n) for n in user_built})
     main_launches = {"expr": kern.expr_launches, "total": kern.launches,
                      "temporal": kern.temporal_launches}
     if kern.expr_launches == 0 or kern.expr_launches != kern.launches:
@@ -2905,11 +2985,18 @@ def expr_phase(dev, mem_rate: float, flop_rate: float, sms: int) -> dict:
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "ops": ops,
-            "instructions": int(len(bp.code)),
-            "registers": max(e.n_regs for e in bp.exprs.values()),
-            **k1_resources(bp, SERVE_B, sms)}
-    ptxas = {k: _registers("stencil_pipeline", v)
-             for k, v in K1_INSTANCES.items()}
+            "instructions": sum(len(e.code) for e in bp.exprs.values()),
+            "live_values": max(e.n_regs for e in bp.exprs.values()),
+            **generated[bp.library_spec.name],
+            **k1_resources(bp, SERVE_B, sms),
+            "payload_blocks_per_sm": sp.blocks_per_sm(pp)}
+        per[name]["ratio"] = per[name]["device_ms"] \
+            / per[name]["payload_device_ms"]
+    payload_attrs = {
+        k + ("_prefetch" if d > 1 else ""): sp.kernel_attributes(program(
+            pipelines[n][0], SERVE_B, d, pipelines[n][2]))
+        for k, n in (("spatial", names[0]), ("temporal", vnames[0]))
+        for d in (1, 2)}
     sums = {k: sum(per[n][k] for n in names)
             for k in ("ms", "device_ms", "payload_ms", "payload_device_ms",
                       "plain_ms", "bound_ms")}
@@ -2925,12 +3012,30 @@ def expr_phase(dev, mem_rate: float, flop_rate: float, sms: int) -> dict:
          max_abs_err=max_err, max_ulp=max_ulp, tolerance_ulp=TOLERANCE_ULP,
          bounded_max_ulp=max(bounded.values()), bound_ulp=EXPR_BOUND_ULP,
          bounded_ulp=bounded, instructions=sorted(xops),
-         ptxas=ptxas, spatial=sums, video=vsums, per_pipeline=per)
+         payload_attributes=payload_attrs, spatial=sums, video=vsums, per_pipeline=per,
+         engine_exec_compile_s=cache.stats.exec_compile_s,
+         first_frame_s=first_frame_s, first_chunk_s=first_chunk_s,
+         phase_seconds=time.perf_counter() - t_phase)
     return {"launches": main_launches["expr"], "max_abs_err": max_err,
             "max_ulp": max_ulp, "bounded_max_ulp": max(bounded.values()),
             "bound_ulp": EXPR_BOUND_ULP, **sums,
             "video": vsums,
-            "ptxas": {k: v for k, v in ptxas.items() if k.endswith("expr")},
+            "build_s": build_s, "build_libraries": wave_libraries,
+            "nvcc_s_max": max(built.values(), default=None),
+            "registers": {n: per[n]["registers"] for n in names + vnames},
+            "measured_libraries": len(generated),
+            "max_registers": max(a["registers"]
+                                 for a in generated.values()),
+            "max_local_bytes": max(a["local_bytes"]
+                                   for a in generated.values()),
+            "payload_attributes": payload_attrs,
+            "first_frame_s": first_frame_s,
+            "first_chunk_s": first_chunk_s,
+            "admission_libraries_built": len(user_built),
+            "blocks_per_sm": {n: per[n]["blocks_per_sm"]
+                              for n in names + vnames},
+            "payload_blocks_per_sm": {n: per[n]["payload_blocks_per_sm"]
+                                      for n in names + vnames},
             "bound_by": "bytes" if all(per[n]["bound_by"] == "bytes"
                                        for n in names) else "operations"}
 
@@ -2942,14 +3047,11 @@ def _registers(lib: str, pattern: str) -> dict | None:
     return hits[0] if len(hits) == 1 else None
 
 
-# the fused kernel's instantiations: <kTemporal, kPrefetch, kExpr>
-K1_INSTANCES = {"spatial": "ILb0ELb0ELb0E", "temporal": "ILb1ELb0ELb0E",
-                "spatial_prefetch": "ILb0ELb1ELb0E",
-                "temporal_prefetch": "ILb1ELb1ELb0E",
-                "spatial_expr": "ILb0ELb0ELb1E",
-                "temporal_expr": "ILb1ELb0ELb1E",
-                "spatial_prefetch_expr": "ILb0ELb1ELb1E",
-                "temporal_prefetch_expr": "ILb1ELb1ELb1E"}
+# the shared library's instantiations: <kTemporal, kPrefetch> (a program
+# with an expression stage has its own library of one)
+K1_INSTANCES = {"spatial": "ILb0ELb0EE", "temporal": "ILb1ELb0EE",
+                "spatial_prefetch": "ILb0ELb1EE",
+                "temporal_prefetch": "ILb1ELb1EE"}
 
 
 def k1_resources(prog, frames_: int, sms: int) -> dict:
@@ -3443,7 +3545,13 @@ def main() -> None:
         "bound_ulp": kx["bound_ulp"],
         **{k: kx[k] for k in ("ms", "device_ms", "payload_ms",
                               "payload_device_ms", "plain_ms", "bound_ms",
-                              "bound_by", "video", "ptxas")},
+                              "bound_by", "video", "build_s",
+                              "build_libraries", "nvcc_s_max",
+                              "registers", "measured_libraries",
+                              "max_registers", "max_local_bytes",
+                              "payload_attributes", "first_frame_s",
+                              "first_chunk_s", "admission_libraries_built",
+                              "blocks_per_sm", "payload_blocks_per_sm")},
         "library_ms": None,
         "timed_on": f"one B={SERVE_B} {SERVE_H}x{SERVE_W} R={SERVE_R} "
                     f"batch of the bare form of each of the {len(names)} "

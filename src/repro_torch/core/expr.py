@@ -5,10 +5,14 @@ A stage's ``fn`` in the DSL is any torch window function: it maps
 cannot run Python, so a stage whose ``fn`` is not a built-in
 :class:`~repro_torch.core.algorithms.Payload` is traced once on the host
 and lowered to a :class:`StageExpr`: a straight-line list of float32
-scalar instructions over the elements of its windows, which the kernel's
-expression body (``csrc/stencil_pipeline.cu``, ``stage_expr``) runs for
-every output pixel. The program is data, so one compiled kernel serves
-every pipeline.
+scalar instructions over the elements of its windows. The StageExpr is
+the intermediate form: ``kernels/expr_codegen.py`` writes it out as a
+CUDA function, compiled into the program's own library of the kernel
+(``csrc/stencil_pipeline.cu``) at the program's first use on the card,
+as Pallas compiles a stage's traced function into the TPU kernel. So a
+pipeline with such a stage costs one ``nvcc`` build (cached on disk by
+content hash); one compiled kernel serves every pipeline of built-in
+payloads only.
 
 Tracing. ``make_fx`` records the aten ops of ``fn`` on fake CPU tensors.
 Each window has shape (2, 3, [st,] sh, sw): a leading (2, 3) block of
@@ -73,19 +77,19 @@ import torch
 
 from .dag import Edge, PipelineDAG, window_keys
 
-# instruction op codes, in the order of ``enum XOp`` in
-# csrc/stencil_pipeline.cu. An instruction is four int32 words: op | dst
-# << 8, then operands a, b, c. "load" reads window element (dt, dy, dx) of
-# operand j (a = j | dt << 8, b = dy, c = dx); every other operand is a
-# register (>= 0) or a constant of the stage (~k: constant k).
+# instruction op codes (kernels/expr_codegen.py has a rule for each). An
+# instruction is four int32 words: op | dst << 8, then operands a, b, c.
+# "load" reads window element (dt, dy, dx) of operand j (a = j | dt << 8,
+# b = dy, c = dx); every other operand is a register (>= 0) or a
+# constant of the stage (~k: constant k).
 XOPS = ("load", "copy", "add", "sub", "mul", "div", "max", "min", "neg",
         "abs", "sqrt", "exp", "log", "tanh", "lt", "le", "gt", "ge", "eq",
         "ne", "where", "and", "or", "not")
 # instructions that are no float32 operation of the stage's arithmetic
 _FREE = ("load", "copy", "where")
 
-# limits of one stage: registers of the kernel's per-thread register file
-# (kMaxRegs), instructions, constants (the kernel's float32 table,
+# limits of one stage: values live at once (the registers of the linear
+# scan), instructions, constants (the kernel's float32 table,
 # stencil_pipeline.MAX_WTS, holds every stage's), windows (MAX_SRC)
 MAX_REGS, MAX_INSTRS, MAX_CONSTS, MAX_SRC = 64, 1024, 256, 3
 

@@ -31,6 +31,17 @@ Evictions bump ``stats.plan_evictions`` / ``stats.exec_evictions``.
 
 Both levels report hit/miss/compile-time stats for the serving metrics.
 
+Below both, on the card, sit the kernel's libraries: the first
+``dag_for`` of a pipeline builds, in one nvcc wave, every library its
+programs launch from (``kernels.stencil_pipeline.prebuild``: the
+shared one, or the program's own per expression-stage set and prefetch
+flag). The engines call ``dag_for`` at admission (``submit``,
+``open_stream``), so a user pipeline's nvcc seconds land in the first
+frame's latency and in ``exec_compile_s``, never inside a fallback
+ladder's attempt and its timeout. A build that fails is raised, with
+nvcc's output, by the executor's construction inside the ladder, where
+it is reported as a compile failure.
+
 A third memo sits above both: the **autotune level** — keyed by
 ``(pipeline, width)`` — runs the design-space search (core.dse.autotune)
 once and pins the winning per-stage memory combo. ``tune=True`` on
@@ -57,7 +68,8 @@ from repro_torch.core.linebuffer import DP, MemConfig
 from repro_torch.kernels.stencil_pipeline import (StencilExecutor,
                                                   VideoExecutor,
                                                   make_executor,
-                                                  make_video_executor)
+                                                  make_video_executor,
+                                                  prebuild)
 from repro_torch.obs import trace
 from repro_torch.obs.metrics import MetricsRegistry
 
@@ -182,7 +194,13 @@ class PlanCache:
             if name not in self._factories:
                 raise KeyError(f"unknown pipeline {name!r}; have "
                                f"{sorted(self._factories)}")
-            self._dags[name] = self._factories[name]()
+            dag = self._factories[name]()
+            if self.device.type == "cuda":
+                t0 = time.perf_counter()
+                with trace.span("cache.libraries", pipeline=name):
+                    prebuild(dag)
+                self.stats.exec_compile_s += time.perf_counter() - t0
+            self._dags[name] = dag
         return self._dags[name]
 
     def _evict_lru_plan(self) -> None:

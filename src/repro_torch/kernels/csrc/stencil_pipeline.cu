@@ -88,9 +88,10 @@
 // (repro_torch/kernels/stencil_pipeline.py::build_program) and passed by
 // value as a __grid_constant__ parameter: per stage an op code, its body,
 // its own ring, its operands (first ring, st, sh, sw), offsets into a
-// float32 constant table and whether a barrier follows it. One compiled
-// kernel serves every pipeline; no source is generated per DAG, and a
-// stage function written by hand in torch arrives as data too (below).
+// float32 constant table and whether a barrier follows it. For pipelines
+// of built-in payload ops no source is generated per DAG: one shared
+// library of four instantiations serves them all. A program with a stage
+// function written by hand in torch gets a library of its own (below).
 //
 // Numerics: every product and sum goes through the _rn intrinsics (and the
 // library is built with -fmad=false), in the reference's order, and sqrt
@@ -136,32 +137,28 @@
 // wait_group takes an immediate (at most 7 here). The depth-1
 // instantiations compile to the kernel without any of this.
 //
-// Expression stages (the kExpr instantiations). A stage whose function is
-// not one of the op codes above was traced on the host and lowered to a
-// straight-line program of float32 scalar instructions
-// (repro_torch/core/expr.py): window-element loads, arithmetic,
-// comparisons and selects over a register file, constants named from the
-// stage's slice of the constant table. stage_expr interprets it for
-// every output pixel: a thread walks its columns and the R rows down
-// each, as the other bodies do, and runs the stage's instructions in
-// order, reading each window element through the ring addressing of the
-// generic body (ring_tap). Each instruction is one int4 (op | dst << 8,
-// then three operands), read from a device buffer by pointer: the
-// program does not fit the 4 KB of kernel parameters beside the stage
-// table, which keeps its layout, and every thread of a warp reads the
-// same instruction, so the load is a broadcast from L1. The register
-// file is indexed at run time, so it lives in local memory (kMaxRegs
-// floats a thread). Sums, differences, products, quotients and roots are
-// _rn intrinsics, so they equal the eager function's step by step; max
-// and min pass a NaN on as torch.maximum does; exp, log and tanh are the
-// CUDA library's. An interpreted operation costs an
-// instruction load, an indirect jump and local-memory operands where a
-// payload body spends a register operation, so the expression body runs
-// far above the bytes bound (PERF.md): a stage the expression body runs
-// too slowly earns a payload op. The interpreter sits behind its own
-// template flag, chosen only for a program with an expression stage
-// (H_EXPR): the other instantiations compile without it and keep their
-// registers.
+// Expression stages (K_EXPR). A stage whose function is not one of the op
+// codes above was traced on the host and lowered to a straight-line
+// program of float32 scalar instructions (repro_torch/core/expr.py). As
+// Pallas compiles a stage's traced function into the TPU kernel's body,
+// the port compiles the lowered program into this kernel:
+// repro_torch/kernels/expr_codegen.py writes each distinct lowered stage
+// as one __device__ function shaped like the payload window bodies (a
+// sliding Window<sh, sw> in registers per operand and time index, the
+// stage's constants read once from its slice of the constant table, one
+// local per instruction, the result to Sink::put), and a dispatcher,
+// stage_generated<kTemporal>, that runs the one whose id is S[S_XID].
+// The fragment is included at the STENCIL_EXPR hook below, in a build of
+// this file that holds only the one instantiation the program launches
+// (STENCIL_EXPR_TEMPORAL, STENCIL_EXPR_PREFETCH; kernels/_build.py).
+// Libraries are cached on disk by content hash, and the constants are
+// not in the source, so programs that differ only in constants share
+// one. Sums, differences,
+// products, quotients and roots are _rn intrinsics, so they equal the
+// eager function's step by step; max and min pass a NaN on as
+// torch.maximum does; exp, log and tanh are the CUDA library's. Without
+// the hook (the shared library) K_EXPR runs nothing, and a launch of a
+// program with an expression stage there is refused (H_EXPR).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -180,7 +177,6 @@ constexpr int kThreads = 256;     // threads per CTA at most
 // CTAs of kThreads an SM must hold by registers: caps a thread at 85
 // registers, which every instantiation meets without spilling
 constexpr int kMinBlocks = 3;
-constexpr int kMaxRegs = 64;      // an expression stage's register file
 
 // op codes: the order of stencil_pipeline.py::OPS
 enum Op {
@@ -196,13 +192,6 @@ enum Kind {
   K_STMEAN_333, K_EXPR
 };
 
-// expression instructions: the order of core/expr.py::XOPS
-enum XOp {
-  X_LOAD = 0, X_COPY, X_ADD, X_SUB, X_MUL, X_DIV, X_MAX, X_MIN, X_NEG, X_ABS,
-  X_SQRT, X_EXP, X_LOG, X_TANH, X_LT, X_LE, X_GT, X_GE, X_EQ, X_NE,
-  X_WHERE, X_AND, X_OR, X_NOT
-};
-
 // header fields
 // H_NCOLS: columns a CTA computes (a multiple of 32); H_PAD: zero columns
 // left of them in every ring row, H_PITCH = H_PAD + H_NCOLS floats a
@@ -211,7 +200,7 @@ enum XOp {
 // vector I/O; H_THREADS: threads per CTA; H_OSYNC: a barrier after the
 // output store (a level-0 final stage). H_DEPTH is the prefetch depth,
 // H_POISON fills the feed rings' grown slots with NaN first, H_EXPR marks
-// a program with an expression stage.
+// a program with an expression stage (it launches from its own library).
 enum Hdr {
   H_NSTAGES = 0, H_R, H_H, H_W, H_STRIP_W, H_HALO_LEFT, H_NCOLS, H_BAND_H,
   H_HALO_UP, H_SMEM_BYTES, H_TEMPORAL, H_DEPTH, H_POISON, H_PAD, H_PITCH,
@@ -225,12 +214,12 @@ enum Hdr {
 // S_LEAD, at depth >= 2, the rows of a feed's ring that copies fill
 // before anything reads them (all but the zero tail above rlo), else 0;
 // S_KIND the body that runs the stage; S_SYNC 1 where a barrier follows.
-// An expression stage keeps its first instruction and its instruction
-// count in S_XOFF and S_XLEN, fields only feeds use otherwise.
+// An expression stage keeps the id of its generated body in S_XID, a
+// field only feeds use otherwise.
 enum Field {
   S_OP = 0, S_RING, S_FINAL, S_FEED, S_NSRC, S_WOFF, S_FOUT, S_STATE,
   S_TAPJ, S_SRC = 9, S_ST = 12, S_SH = 15, S_SW = 18, S_LEAD = 21,
-  S_KIND = 22, S_SYNC = 23, S_XOFF = S_FEED, S_XLEN = S_TAPJ
+  S_KIND = 22, S_SYNC = 23, S_XID = S_FEED
 };
 
 struct Program {
@@ -295,7 +284,6 @@ struct Ctx {
   const Program* P;
   const Feeds* F;
   const Outs* O;
-  const int4* X;      // the expression stages' instructions
   float* sm;
   const int* slots;   // ring -> slot holding row row0 (this row group)
   int R, h, w, ncols, pitch, pad, tid, nt;
@@ -823,13 +811,6 @@ __device__ __forceinline__ void stage_generic(const Ctx& c, const int* S) {
 }
 
 // ----------------------------------------------------------- expression
-// An instruction's operand: register x of the file r, or (x < 0) constant
-// ~x of the stage's constants wt.
-__device__ __forceinline__ float operand(const float* r, const float* wt,
-                                        int x) {
-  return x >= 0 ? r[x] : wt[~x];
-}
-
 // torch.maximum / minimum: a NaN operand gives NaN (fmaxf / fminf, which
 // the payload bodies take, would drop it)
 __device__ __forceinline__ float max_nan(float a, float b) {
@@ -839,61 +820,15 @@ __device__ __forceinline__ float min_nan(float a, float b) {
   return a != a ? a : b != b ? b : fminf(a, b);
 }
 
-// A lowered stage function: per output pixel, its instructions in order
-// over a register file. The result is the last instruction's register.
+// The program's generated stage bodies and stage_generated<kTemporal>(c,
+// S), which runs the one whose id is S[S_XID] (a fragment written by
+// repro_torch/kernels/expr_codegen.py, named where its library is built).
+#ifdef STENCIL_EXPR
+#include STENCIL_EXPR
+#else
 template <bool kTemporal>
-__device__ __forceinline__ void stage_expr(const Ctx& c, const int* S) {
-  const int4* code = c.X + S[S_XOFF];
-  const int n = S[S_XLEN];
-  const float* wt = c.P->wts + S[S_WOFF];
-  const int res = __ldg(code + n - 1).x >> 8;
-  float r[kMaxRegs];
-  const float* file = r;
-  auto src = [file, wt](int x) -> float { return operand(file, wt, x); };
-  for (int lc = c.tid; lc < c.ncols; lc += c.nt) {
-    Sink out = sink<kTemporal>(c, S, lc);
-    for (int i = 0; i < c.R; ++i) {
-      for (int k = 0; k < n; ++k) {
-        const int4 q = __ldg(code + k);
-        float v;
-        switch (q.x & 255) {
-          case X_LOAD:
-            v = ring_tap(c, S, i, lc, q.y & 255, q.y >> 8, q.z, q.w);
-            break;
-          case X_ADD: v = __fadd_rn(src(q.y), src(q.z)); break;
-          case X_SUB: v = __fsub_rn(src(q.y), src(q.z)); break;
-          case X_MUL: v = __fmul_rn(src(q.y), src(q.z)); break;
-          case X_DIV: v = __fdiv_rn(src(q.y), src(q.z)); break;
-          case X_MAX: v = max_nan(src(q.y), src(q.z)); break;
-          case X_MIN: v = min_nan(src(q.y), src(q.z)); break;
-          case X_NEG: v = -src(q.y); break;
-          case X_ABS: v = fabsf(src(q.y)); break;
-          case X_SQRT: v = __fsqrt_rn(src(q.y)); break;
-          case X_EXP: v = expf(src(q.y)); break;
-          case X_LOG: v = logf(src(q.y)); break;
-          case X_TANH: v = tanhf(src(q.y)); break;
-          case X_LT: v = src(q.y) < src(q.z) ? 1.f : 0.f; break;
-          case X_LE: v = src(q.y) <= src(q.z) ? 1.f : 0.f; break;
-          case X_GT: v = src(q.y) > src(q.z) ? 1.f : 0.f; break;
-          case X_GE: v = src(q.y) >= src(q.z) ? 1.f : 0.f; break;
-          case X_EQ: v = src(q.y) == src(q.z) ? 1.f : 0.f; break;
-          case X_NE: v = src(q.y) != src(q.z) ? 1.f : 0.f; break;
-          case X_WHERE: v = src(q.y) != 0.f ? src(q.z) : src(q.w); break;
-          case X_AND:
-            v = src(q.y) != 0.f && src(q.z) != 0.f ? 1.f : 0.f;
-            break;
-          case X_OR:
-            v = src(q.y) != 0.f || src(q.z) != 0.f ? 1.f : 0.f;
-            break;
-          case X_NOT: v = src(q.y) == 0.f ? 1.f : 0.f; break;
-          default: v = src(q.y); break;   // X_COPY
-        }
-        r[q.x >> 8] = v;
-      }
-      out.put(c, i, r[res]);
-    }
-  }
-}
+__device__ __forceinline__ void stage_generated(const Ctx&, const int*) {}
+#endif
 
 template <bool kTemporal>
 __device__ __forceinline__ void stage_point_op(const Ctx& c, const int* S) {
@@ -955,20 +890,18 @@ __device__ __forceinline__ void store_output(const Ctx& c) {
 // is the spatial kernel's alone (the temporal cases compile to nothing).
 // kPrefetch: feeds are copied into their grown rings d - 1 row groups
 // ahead (prefetch depth d >= 2); without it the feed stages copy their
-// row group's rows at level 0 and wait for them. kExpr: the
-// instantiation that also runs expression stages (instructions at X).
-template <bool kTemporal, bool kPrefetch, bool kExpr>
+// row group's rows at level 0 and wait for them. Expression stages run
+// where the STENCIL_EXPR hook holds the program's generated bodies.
+template <bool kTemporal, bool kPrefetch>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 stencil_pipeline_kernel(const __grid_constant__ Program P,
                         const __grid_constant__ Feeds F,
-                        const __grid_constant__ Outs O,
-                        const int4* __restrict__ X) {
+                        const __grid_constant__ Outs O) {
   extern __shared__ float smem[];
   Ctx c;
   c.P = &P;
   c.F = &F;
   c.O = &O;
-  c.X = X;
   c.sm = smem;
   c.R = P.hdr[H_R];
   c.h = P.hdr[H_H];
@@ -1083,9 +1016,7 @@ stencil_pipeline_kernel(const __grid_constant__ Program P,
         case K_STMEAN_333:
           if constexpr (kTemporal) stage_stmean<3, 3, 3>(c, S);
           break;
-        case K_EXPR:
-          if constexpr (kExpr) stage_expr<kTemporal>(c, S);
-          break;
+        case K_EXPR: stage_generated<kTemporal>(c, S); break;
         default: stage_generic<kTemporal>(c, S); break;
       }
       // the next level reads this level's rings; after the last level
@@ -1106,33 +1037,39 @@ stencil_pipeline_kernel(const __grid_constant__ Program P,
   }
 }
 
-using Kernel = void (*)(Program, Feeds, Outs, const int4*);
+using Kernel = void (*)(Program, Feeds, Outs);
 
-template <bool kExpr>
-Kernel pick(int temporal, int prefetch) {
-  if (prefetch)
-    return temporal ? stencil_pipeline_kernel<true, true, kExpr>
-                    : stencil_pipeline_kernel<false, true, kExpr>;
-  return temporal ? stencil_pipeline_kernel<true, false, kExpr>
-                  : stencil_pipeline_kernel<false, false, kExpr>;
-}
-
+#ifdef STENCIL_EXPR
+// A program's own library: the one instantiation its launches take.
 Kernel pick_kernel(int temporal, int prefetch, int expr) {
-  return expr ? pick<true>(temporal, prefetch)
-              : pick<false>(temporal, prefetch);
+  if (!expr || temporal != STENCIL_EXPR_TEMPORAL
+      || prefetch != STENCIL_EXPR_PREFETCH)
+    return nullptr;
+  return stencil_pipeline_kernel<STENCIL_EXPR_TEMPORAL != 0,
+                                 STENCIL_EXPR_PREFETCH != 0>;
 }
+#else
+// The shared library: the four instantiations of payload programs.
+Kernel pick_kernel(int temporal, int prefetch, int expr) {
+  if (expr) return nullptr;
+  if (prefetch)
+    return temporal ? stencil_pipeline_kernel<true, true>
+                    : stencil_pipeline_kernel<false, true>;
+  return temporal ? stencil_pipeline_kernel<true, false>
+                  : stencil_pipeline_kernel<false, false>;
+}
+#endif
 
 }  // namespace
 
 // table: kHdr + kMaxStages * kStageInts + kMaxRings * 2 ints; wts: kMaxWts
-// floats; code: the expression stages' instructions in device memory
-// (null when the program has none); feeds: kMaxFeeds device pointers
-// (inputs, then frame-ring states); outs: kMaxOuts (the output, then
-// frame outputs). Vector I/O needs every pointer 16-byte aligned; the
-// launch falls back to scalar I/O otherwise. Launches on ``stream`` and
-// returns the cudaError_t of the launch (0 on success).
+// floats; feeds: kMaxFeeds device pointers (inputs, then frame-ring
+// states); outs: kMaxOuts (the output, then frame outputs). Vector I/O
+// needs every pointer 16-byte aligned; the launch falls back to scalar
+// I/O otherwise. Launches on ``stream`` and returns the cudaError_t of
+// the launch (0 on success; cudaErrorInvalidDeviceFunction for a program
+// this library does not hold).
 extern "C" int stencil_pipeline_launch(const int* table, const float* wts,
-                                       const void* code,
                                        const void* const* feeds,
                                        void* const* outs,
                                        int grid_x, int grid_y, int grid_z,
@@ -1157,12 +1094,13 @@ extern "C" int stencil_pipeline_launch(const int* table, const float* wts,
   const int smem = P.hdr[H_SMEM_BYTES];
   const Kernel kernel = pick_kernel(P.hdr[H_TEMPORAL], P.hdr[H_DEPTH] > 1,
                                     P.hdr[H_EXPR]);
+  if (kernel == nullptr)
+    return static_cast<int>(cudaErrorInvalidDeviceFunction);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<dim3(grid_x, grid_y, grid_z), P.hdr[H_THREADS], smem,
-           static_cast<cudaStream_t>(stream)>>>(
-      P, F, O, static_cast<const int4*>(code));
+           static_cast<cudaStream_t>(stream)>>>(P, F, O);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1171,16 +1109,37 @@ extern "C" const char* stencil_pipeline_error_string(int code) {
 }
 
 // CTAs of the kernel (the temporal instantiation when ``temporal``, the
-// prefetch one when ``prefetch``, the expression one when ``expr``) that
+// prefetch one when ``prefetch``, a program's own when ``expr``) that
 // fit on one SM at ``threads`` threads and ``smem_bytes`` of dynamic
 // shared memory each, written to ``*blocks``; returns the cudaError_t.
 extern "C" int stencil_pipeline_blocks_per_sm(int smem_bytes, int temporal,
                                               int prefetch, int expr,
                                               int threads, int* blocks) {
   const Kernel kernel = pick_kernel(temporal, prefetch, expr);
+  if (kernel == nullptr)
+    return static_cast<int>(cudaErrorInvalidDeviceFunction);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks, kernel, threads, smem_bytes));
+}
+
+// Registers a thread and local memory bytes a thread of the
+// instantiation pick_kernel(temporal, prefetch, expr) returns, as the
+// loaded module holds it (cudaFuncGetAttributes), written to *registers
+// and *local_bytes; returns the cudaError_t. Local memory is where ptxas
+// spills, so 0 bytes means no spills.
+extern "C" int stencil_pipeline_attributes(int temporal, int prefetch,
+                                           int expr, int* registers,
+                                           int* local_bytes) {
+  const Kernel kernel = pick_kernel(temporal, prefetch, expr);
+  if (kernel == nullptr)
+    return static_cast<int>(cudaErrorInvalidDeviceFunction);
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *registers = attr.numRegs;
+  *local_bytes = static_cast<int>(attr.localSizeBytes);
+  return 0;
 }

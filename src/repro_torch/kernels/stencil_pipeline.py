@@ -21,8 +21,10 @@ This module holds, beside the kernel:
     geometry and shared-memory bill. A stage whose function is a built-in
     :class:`~repro_torch.core.algorithms.Payload` takes its op code; any
     other torch window function is traced and lowered
-    (:mod:`repro_torch.core.expr`) to instructions that the kernel's
-    expression body runs;
+    (:mod:`repro_torch.core.expr`) and written out as a CUDA function
+    (:mod:`repro_torch.kernels.expr_codegen`) that the program's own
+    library of the kernel holds (:func:`library`; :func:`prebuild`
+    builds a DAG's libraries ahead of its first program);
   * :func:`stencil_pipeline_plain` and :func:`video_pipeline_plain` —
     the kernel's plain PyTorch versions: whole-frame, stage by stage,
     through the same payloads (an expression stage's plain version is
@@ -39,6 +41,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Mapping, Sequence
 
 import numpy as np
@@ -53,7 +56,7 @@ from repro_torch.core.dag import PipelineDAG, window_keys
 from repro_torch.core.expr import StageExpr, lower_stage
 from repro_torch.obs import trace
 
-from . import _build
+from . import _build, expr_codegen
 
 # op codes, in the order of ``enum Op`` in csrc/stencil_pipeline.cu
 OPS = ("input", "relay", "conv", "square", "identity", "mag", "prod",
@@ -79,14 +82,14 @@ TABLE_INTS = HDR + MAX_STAGES * STAGE_INTS + MAX_RINGS * 2
 (S_OP, S_RING, S_FINAL, S_FEED, S_NSRC, S_WOFF, S_FOUT, S_STATE,
  S_TAPJ) = range(9)
 S_SRC, S_ST, S_SH, S_SW, S_LEAD, S_KIND, S_SYNC = 9, 12, 15, 18, 21, 22, 23
-# an expression stage's first instruction and instruction count, in fields
+# an expression stage's generated body (expr_codegen.stage_id), in a field
 # only feeds use otherwise
-S_XOFF, S_XLEN = S_FEED, S_TAPJ
+S_XID = S_FEED
 
 # stage bodies, in the order of ``enum Kind`` in csrc/stencil_pipeline.cu:
 # a feed (input or history tap), a pointwise op on 1x1 operands, and the
 # window shapes the registered pipelines use, unrolled; any other payload
-# takes the generic body, a lowered stage function the expression body
+# takes the generic body, a lowered stage function its generated body
 KINDS = ("generic", "feed", "point", "conv1x5", "conv5x1", "conv1x3",
          "conv3x1", "conv3x3", "nms3x3", "xcorr18", "stmean4", "stmean8",
          "stmean333", "expr")
@@ -205,8 +208,10 @@ class StencilProgram:
     ``rings`` names the table's rings in order: a producer's live ring,
     or ``(producer, j)`` for its history tap j frames back. ``exprs``
     holds each expression stage's lowered function, in table order, and
-    ``code`` their instructions, (n, 4) int32, in the same order (the
-    launch copies them to the device once per device, ``device_code``).
+    ``source`` their generated CUDA fragment
+    (:func:`~repro_torch.kernels.expr_codegen.expr_source`; "" for a
+    payload program), which the program's own library is built from
+    (:func:`library`).
     """
     dag: PipelineDAG
     h: int
@@ -226,9 +231,15 @@ class StencilProgram:
     prefetch_bytes: int = 0
     rings: tuple = ()
     exprs: Mapping[str, StageExpr] = dataclasses.field(default_factory=dict)
-    code: np.ndarray = dataclasses.field(
-        default_factory=lambda: np.zeros((0, 4), np.int32))
-    device_code: dict = dataclasses.field(default_factory=dict, repr=False)
+    source: str = dataclasses.field(default="", repr=False)
+
+    @functools.cached_property
+    def library_spec(self) -> _build.Library:
+        """The library that runs this program (:func:`library`): the
+        shared one of the four payload instantiations, or, with an
+        expression stage, its own."""
+        return _library_spec(self.source, bool(self.table[H_TEMPORAL]),
+                             self.prefetch_depth > 1)
 
 
 def _resident(smem: int) -> int:
@@ -286,9 +297,9 @@ def build_program(dag: PipelineDAG, h: int, w: int, rows_per_step: int,
     Operand order is resolved here, once: each payload maps its in-edges
     (window-key order) to its op's operands; a stage function that is no
     payload is lowered (:func:`repro_torch.core.expr.lower_stage`) over
-    its in-edges in window-key order, its instructions appended to the
-    program's ``code`` and its constants to the constant table. A
-    temporal DAG gets one tap
+    its in-edges in window-key order, its row names its generated body
+    (``S_XID``), its constants join the constant table, and the
+    program's ``source`` holds the bodies. A temporal DAG gets one tap
     stage per (producer, j frames back) ahead of the other stages, and
     each producer's rings are laid out oldest tap first, live ring last,
     so an operand's (first ring, st) spans its time window. Stages are
@@ -402,8 +413,6 @@ def build_program(dag: PipelineDAG, h: int, w: int, rows_per_step: int,
     table = np.zeros(TABLE_INTS, np.int32)
     wts: list[float] = []
     exprs: dict[str, StageExpr] = {}
-    code: list[np.ndarray] = []
-    n_code = 0
     for s, name in enumerate(stages):
         row = table[HDR + s * STAGE_INTS: HDR + (s + 1) * STAGE_INTS]
         row[S_RING] = ring_idx.get(name, -1)
@@ -441,9 +450,7 @@ def build_program(dag: PipelineDAG, h: int, w: int, rows_per_step: int,
         else:                  # a torch window function, lowered
             ex = exprs[name] = lower_stage(dag.name, name, st.fn, ins)
             op, srcs = "expr", list(ex.operands)
-            row[S_XOFF], row[S_XLEN] = n_code, len(ex.code)
-            code.append(ex.code)
-            n_code += len(ex.code)
+            row[S_XID] = expr_codegen.stage_id(ex)
             wts.extend(ex.consts)
         row[S_OP] = OPS.index(op)
         row[S_KIND] = KINDS.index(stage_kind(op, srcs))
@@ -464,10 +471,10 @@ def build_program(dag: PipelineDAG, h: int, w: int, rows_per_step: int,
     band_h = _band_height(h, grid_x, frames, up, r, target_ctas)
     # temporal programs launch the kernel's temporal instantiation,
     # depth >= 2 its prefetch one, and a program with an expression stage
-    # its expression one; the launch clears H_VEC when a tensor is not
-    # 16-byte aligned. A final stage of level 0 (an input wired to the
-    # output) writes the output rows before the first barrier, so their
-    # store ends in one of its own (H_OSYNC).
+    # launches from its own library; the launch clears H_VEC when a
+    # tensor is not 16-byte aligned. A final stage of level 0 (an input
+    # wired to the output) writes the output rows before the first
+    # barrier, so their store ends in one of its own (H_OSYNC).
     table[:H_EXPR + 1] = (
         len(stages), r, h, w, strip_w, left, ncols, band_h, up, smem,
         int(bool(states)), prefetch_depth, int(poison_prefetch),
@@ -484,8 +491,8 @@ def build_program(dag: PipelineDAG, h: int, w: int, rows_per_step: int,
                           prefetch_bytes=grown,
                           rings=tuple(sorted(ring_idx, key=ring_idx.get)),
                           exprs=exprs,
-                          code=np.concatenate(code) if code
-                          else np.zeros((0, 4), np.int32))
+                          source=expr_codegen.expr_source(exprs.values())
+                          if exprs else "")
 
 
 def _payload_operands(pipeline: str, name: str, fn, ins, wts: list
@@ -631,11 +638,23 @@ def tap_feeds(dag: PipelineDAG, inputs: Mapping[str, torch.Tensor],
     return taps
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("stencil_pipeline")
+def _library_spec(source: str, temporal: bool, prefetch: bool
+                  ) -> _build.Library:
+    if not source:
+        return _build.kernel_library("stencil_pipeline")
+    return _build.expr_library(source, temporal, prefetch)
+
+
+def library(program: StencilProgram) -> ctypes.CDLL:
+    """The loaded library that runs ``program`` (``program.library_spec``),
+    built first if missing: the shared library of the four payload
+    instantiations, or, for a program with an expression stage, its own
+    (``csrc/`` plus its generated ``source``, the one instantiation it
+    launches). Raises with nvcc's output if the build fails."""
+    lib = _build.load_library(program.library_spec)
     fn = lib.stencil_pipeline_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.stencil_pipeline_error_string.argtypes = [ctypes.c_int]
@@ -643,7 +662,46 @@ def _lib() -> ctypes.CDLL:
         lib.stencil_pipeline_blocks_per_sm.argtypes = [
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        lib.stencil_pipeline_attributes.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
     return lib
+
+
+def build_libraries(programs: Sequence[StencilProgram]) -> dict[str, float]:
+    """Build, in one parallel wave, every missing library that
+    ``programs`` launch from. Returns {library name: nvcc seconds} of the
+    libraries built here. Raises with nvcc's output on a failure."""
+    return _build.build_all(p.library_spec for p in programs)
+
+
+def dag_libraries(dag: PipelineDAG) -> list[_build.Library]:
+    """The libraries that ``dag``'s programs launch from, at any shape,
+    batch and depth: the shared one, or, when a stage lowers to an
+    expression, the program's own at depth 1 and at prefetch depth.
+    Raises ValueError for a stage that does not lower."""
+    exprs = [lower_stage(dag.name, n, st.fn, dag.in_edges(n))
+             for n, st in dag.stages.items()
+             if not (st.is_input or st.is_output or st.fn is None
+                     or isinstance(st.fn, Payload))]
+    source = expr_codegen.expr_source(exprs) if exprs else ""
+    temporal = bool(dag.temporal_depths())
+    return [_library_spec(source, temporal, prefetch)
+            for prefetch in ((False, True) if source else (False,))]
+
+
+def prebuild(dag: PipelineDAG) -> dict[str, float]:
+    """Build, in one wave, the missing libraries of
+    :func:`dag_libraries`, so that a pipeline's first frame finds them on
+    disk. Returns {library name: nvcc seconds}. Raises nothing: a stage
+    that does not lower, or a library that fails to build, raises where
+    its program is built or its library loaded (:func:`build_program`,
+    :func:`library`), without running nvcc again."""
+    try:
+        libs = dag_libraries(dag)
+    except ValueError:
+        return {}
+    return _build.build_all(libs, check=False)
 
 
 def _check(lib: ctypes.CDLL, rc: int, what: str) -> None:
@@ -655,7 +713,7 @@ def _check(lib: ctypes.CDLL, rc: int, what: str) -> None:
 def blocks_per_sm(program: StencilProgram) -> int:
     """CTAs of the kernel resident on one SM at ``program``'s threads
     and shared memory (the CUDA occupancy calculator; needs the card)."""
-    lib = _lib()
+    lib = library(program)
     n = ctypes.c_int(0)
     temporal = int(program.table[H_TEMPORAL])
     prefetch = int(program.prefetch_depth > 1)
@@ -664,6 +722,20 @@ def blocks_per_sm(program: StencilProgram) -> int:
         int(program.table[H_THREADS]), ctypes.byref(n)),
         "occupancy query")
     return n.value
+
+
+def kernel_attributes(program: StencilProgram) -> dict[str, int]:
+    """{"registers": a thread's, "local_bytes": a thread's local memory}
+    of the instantiation that runs ``program``, read from the loaded
+    library (``cudaFuncGetAttributes``; needs the card). ptxas spills to
+    local memory, so 0 local bytes means no spills."""
+    lib = library(program)
+    regs, local = ctypes.c_int(0), ctypes.c_int(0)
+    _check(lib, lib.stencil_pipeline_attributes(
+        int(program.table[H_TEMPORAL]), int(program.prefetch_depth > 1),
+        int(program.table[H_EXPR]), ctypes.byref(regs),
+        ctypes.byref(local)), "attribute query")
+    return {"registers": regs.value, "local_bytes": local.value}
 
 
 class StencilPipelineKernel:
@@ -682,7 +754,8 @@ class StencilPipelineKernel:
     ``temporal_launches`` those of programs with frame rings at depth 1
     (the temporal instantiation); the rest launched the spatial one.
     ``expr_launches`` counts, across all of them, the launches of
-    programs with an expression stage (the expression instantiations).
+    programs with an expression stage (each from its own library, built
+    at the program's first use: :func:`library`).
     """
     name = "stencil_pipeline"
 
@@ -735,24 +808,17 @@ class StencilPipelineKernel:
             raise ValueError(f"unsupported device {dev}")
         if b > 65535:
             raise ValueError(f"batch {b} exceeds the grid's 65535 frames")
-        lib = _lib()
+        lib = library(program)
         outs = [torch.empty((b, program.h, program.w), dtype=torch.float32,
                             device=dev)
                 for _ in range(1 + len(program.frame_outs))]
         fptrs = (ctypes.c_void_p * MAX_FEEDS)(
             *[t.data_ptr() for t in (*feeds, *states)])
         optrs = (ctypes.c_void_p * MAX_OUTS)(*[t.data_ptr() for t in outs])
-        code = None
-        if program.exprs:
-            buf = program.device_code.get(dev)
-            if buf is None:
-                buf = program.device_code[dev] = torch.from_numpy(
-                    program.code.copy()).to(dev)
-            code = buf.data_ptr()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = lib.stencil_pipeline_launch(
-                program.table.ctypes.data, program.wts.ctypes.data, code,
+                program.table.ctypes.data, program.wts.ctypes.data,
                 fptrs, optrs, program.grid_x, program.grid_y, b, stream)
         _check(lib, rc, "launch")
         self.launches += 1
@@ -835,7 +901,11 @@ def make_executor(dag: PipelineDAG, h: int, w: int,
     """Executor factory: DAG + shape (+ optional plan) -> StencilExecutor.
 
     ``rows_per_step`` and ``prefetch_depth`` default to the plan's fields
-    (1 when no plan). Runs on the GPU unless ``device="cpu"``.
+    (1 when no plan). Runs on the GPU unless ``device="cpu"``; on the
+    GPU the kernel's library is loaded here, and a program with an
+    expression stage builds its own first if nothing built it before
+    (nvcc, seconds: part of the caller's compile time, never of a frame;
+    ``PlanCache`` builds it earlier, at admission, with :func:`prebuild`).
     """
     if dag.is_temporal():
         raise ValueError(f"{dag.name} reads frame history; build it with "
@@ -848,6 +918,8 @@ def make_executor(dag: PipelineDAG, h: int, w: int,
     prog = build_program(dag, h, w, r, frames=batch or 1,
                          alloc_buffers=plan.alloc.buffers if plan else None,
                          prefetch_depth=d)
+    if dev.type == "cuda":
+        library(prog)
     return StencilExecutor(dag=dag, h=h, w=w, batch=batch, rows_per_step=r,
                            prefetch_depth=d, smem_bytes=prog.smem_bytes,
                            device=dev, plan=plan, program=prog)
@@ -963,7 +1035,8 @@ def make_video_executor(dag: PipelineDAG, h: int, w: int,
     from earlier frames of the chunk and the state (chunk mode), and the
     returned state rolls the newest frames in. A DAG with no temporal
     edges degenerates to the plain executor with empty state. Runs on
-    the GPU unless ``device="cpu"``.
+    the GPU unless ``device="cpu"``; on the GPU the kernel's library is
+    loaded (and built) here as in :func:`make_executor`.
     """
     r = _resolve_rows(rows_per_step, plan)
     d = _resolve_depth(prefetch_depth, plan)
@@ -980,6 +1053,8 @@ def make_video_executor(dag: PipelineDAG, h: int, w: int,
     prog = build_program(dag, h, w, r, frames=chunk or 1,
                          alloc_buffers=plan.alloc.buffers if plan else None,
                          prefetch_depth=d)
+    if dev.type == "cuda":
+        library(prog)
     state_bytes = plan.vmem_frame_bytes(h) if plan is not None \
         else sum((k - 1) * h * w * 4 for k in depths.values())
     return VideoExecutor(dag=dag, h=h, w=w, chunk=chunk, rows_per_step=r,

@@ -16,7 +16,9 @@ too, except sums, means, exp, log and tanh, a division by a number
 against the card's eager version and a float32 ``torch.sqrt`` against
 the CPU's (4 ULP at the array's scale; ``core/expr.py`` says why).
 swa_decode sums its dot products in another order: rtol 2e-4, atol
-2e-5.
+2e-5. A program with an expression stage launches from a library of its
+own, built by nvcc at its first use: the expression tests share one
+parallel build wave (``expr_libraries``).
 """
 import threading
 
@@ -28,15 +30,16 @@ from repro_torch.core import algorithms, expr, fuzz
 from repro_torch.core.dsl import Pipeline
 from repro_torch.imaging import FrameEngine, FrameRequest, PlanCache, \
     execute_tiled
-from repro_torch.kernels import conv2d_stencil, ops
+from repro_torch.kernels import _build, conv2d_stencil, expr_codegen, ops
 from repro_torch.kernels import stencil_pipeline as sp
 from repro_torch.kernels import swa_decode as swa
 from repro_torch.resilience import ResilienceConfig, RetryPolicy
 from repro_torch.resilience.chaos import ChaosMonkey, install_chaos
 from repro_torch.video import VideoEngine, VideoFrame
 from test_torch_expr import (CASES, CPU_SQRT, DIVIDES_BY_A_NUMBER, NAN_FNS,
-                             assert_bounded, case_frames, case_pipeline,
-                             case_plain)
+                             NAN_SHAPES, TAPS, assert_bounded, case_frames,
+                             case_pipeline, case_plain, conv_pipeline,
+                             two_stage_pipeline)
 
 NAMES = sorted(algorithms.ALGORITHMS)
 VIDEO = sorted(algorithms.VIDEO_ALGORITHMS)
@@ -86,6 +89,27 @@ def cuda_device():
 
 def _frames(seed, n, h, w):
     return np.random.RandomState(seed).rand(n, h, w).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def expr_libraries():
+    """Every library the expression tests below launch from (one per
+    program with an expression stage and instantiation), built in one
+    parallel wave; {library: nvcc seconds} of those built here."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernel has no CPU mode)")
+    dags = [expr.bare_pipeline(f()) for f in (
+        *algorithms.ALGORITHMS.values(), *algorithms.VIDEO_ALGORITHMS.values(),
+        _generic, lambda: _generic(True))]
+    dags += [fuzz.random_pipeline(seed, conv, temporal=t) for seed in range(8)
+             for conv in (fuzz.bare_conv, algorithms.conv_fn)
+             for t in (False, True)]
+    dags += [case_pipeline(n) for n in CASES]
+    dags += [case_pipeline(f"nan-{op}", NAN_FNS[op], NAN_SHAPES)
+             for op in NAN_FNS]
+    return sp.build_libraries([sp.build_program(g, 37, 53, 1,
+                                                prefetch_depth=d)
+                               for g in dags for d in (1, 2)])
 
 
 @pytest.mark.cuda
@@ -159,7 +183,8 @@ def _launch_and_plain(dag, x, states_np, r, depth, dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("depth", [1, 2])
 @pytest.mark.parametrize("name", NAMES + VIDEO + ["generic", "tgeneric"])
-def test_bare_forms_match_payload_forms_bitwise(cuda_device, name, depth):
+def test_bare_forms_match_payload_forms_bitwise(cuda_device, expr_libraries,
+                                                name, depth):
     """Every computed stage through the expression body (each payload
     replaced by its eager function) equals the payload form and the plain
     version bit for bit, at a scalar and a float4 width, R = 1 and 8,
@@ -192,7 +217,8 @@ def test_bare_forms_match_payload_forms_bitwise(cuda_device, name, depth):
 @pytest.mark.parametrize("depth", [1, 2])
 @pytest.mark.parametrize("temporal", [False, True])
 @pytest.mark.parametrize("form", ["payload", "bare"])
-def test_fuzz_dags_match_plain_bitwise(cuda_device, form, temporal, depth):
+def test_fuzz_dags_match_plain_bitwise(cuda_device, expr_libraries, form,
+                                       temporal, depth):
     """The fuzz harness's random DAGs (seeds 0-7) through the expression
     body equal the plain version bit for bit."""
     conv = fuzz.bare_conv if form == "bare" else algorithms.conv_fn
@@ -226,8 +252,8 @@ def _launch_case(dag, x, states, r, depth, dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(CASES))
-def test_lowering_cases_match_the_eager_function_on_the_card(cuda_device,
-                                                             name):
+def test_lowering_cases_match_the_eager_function_on_the_card(
+        cuda_device, expr_libraries, name):
     """Each lowering case of ``tests/test_torch_expr.py`` (together they
     take every instruction of the expression body) as stage "s" of a
     small pipeline, at a scalar and a float4 width, R = 1 and 8, depths 1
@@ -256,9 +282,9 @@ def test_lowering_cases_match_the_eager_function_on_the_card(cuda_device,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("op", sorted(NAN_FNS))
-def test_max_and_min_pass_a_nan_on_the_card(cuda_device, op):
-    dag = case_pipeline(f"nan-{op}", NAN_FNS[op],
-                        {"a": (1, 3, 3), "b": (1, 1, 1)})
+def test_max_and_min_pass_a_nan_on_the_card(cuda_device, expr_libraries,
+                                            op):
+    dag = case_pipeline(f"nan-{op}", NAN_FNS[op], NAN_SHAPES)
     x, _ = case_frames(dag, 4, 45, 1920, 0)
     x.reshape(-1)[::31] = np.nan
     got, prog = _launch_case(dag, x, [], 8, 1, cuda_device)
@@ -266,6 +292,90 @@ def test_max_and_min_pass_a_nan_on_the_card(cuda_device, op):
     assert 0 < int(exp.isnan().sum()) < exp.numel()
     torch.testing.assert_close(got, exp.cpu(), rtol=0, atol=0,
                                equal_nan=True)
+
+
+@pytest.mark.cuda
+def test_a_second_executor_loads_the_cached_library(cuda_device,
+                                                    monkeypatch):
+    """An executor of a program with an expression stage builds its
+    library at construction; another executor of the same program (or
+    of one that differs only in its constants, or at another R) loads
+    it, in this process or from the disk, without running nvcc."""
+    dags = [conv_pipeline(t) for t in TAPS]
+    sp.make_executor(dags[0], 37, 53, batch=2, device=cuda_device)
+
+    def no_nvcc(lib):
+        raise AssertionError(f"nvcc ran again for {lib.name}")
+    monkeypatch.setattr(_build, "_compile", no_nvcc)
+    x = torch.from_numpy(_frames(40, 2, 37, 53)).to(cuda_device)
+    for forget in (False, True):
+        if forget:                     # a new process: only the disk knows
+            monkeypatch.setattr(_build, "_LIBS", {})
+        for dag in dags:
+            ex = sp.make_executor(dag, 37, 53, batch=2, rows_per_step=8,
+                                  device=cuda_device)
+            assert torch.equal(ex({"in": x}), sp.stencil_pipeline_plain(
+                dag, {"in": x}))
+
+
+@pytest.mark.cuda
+def test_a_cold_user_pipeline_is_built_at_admission(cuda_device,
+                                                    monkeypatch, tmp_path):
+    """A user pipeline whose libraries are on no disk, served by a
+    resilient FrameEngine whose attempts time out long before one nvcc
+    build ends: ``submit`` builds both of its libraries (depth 1 and
+    prefetch) when the cache first meets the pipeline, outside the
+    fallback ladder, so the first batch is served on the primary rung
+    and equals the plain version."""
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_LIBS", {})
+    dag = two_stage_pipeline()
+    eng = FrameEngine(cache=PlanCache(pipelines={dag.name: lambda: dag},
+                                      device=cuda_device),
+                      max_batch=2, resilience=ResilienceConfig(
+                          retry=RetryPolicy(max_attempts=1, timeout_s=2.0)))
+    frames = _frames(43, 2, 37, 53)
+    for i in range(2):
+        assert eng.submit(FrameRequest(rid=i, pipeline=dag.name,
+                                       frames={"in": frames[i]})) is True
+    assert sorted(f.name for f in tmp_path.glob("lib*.so")) == sorted(
+        f"lib{lib.name}.so" for lib in sp.dag_libraries(dag))
+    assert eng.cache.stats.exec_compile_s > 2.0       # the nvcc wave
+    done = eng.step()
+    assert [c.rung for c in done] == ["default"] * 2
+    assert eng.metrics.fallback_frames == 0
+    for c, f in zip(done, frames):
+        x = torch.from_numpy(f).to(cuda_device)
+        assert torch.equal(c.output, sp.stencil_pipeline_plain(
+            dag, {"in": x}))
+
+
+@pytest.mark.cuda
+def test_a_fragment_that_does_not_compile_raises(cuda_device, monkeypatch):
+    """A generated body nvcc refuses: the executor's construction, the
+    wrapper and a strict FrameEngine raise or fail with nvcc's output,
+    and no kernel launches (no interpreter, no plain version in its
+    place)."""
+    monkeypatch.setitem(expr_codegen.RULES, "sub",
+                        "__no_such_intrinsic({a}, {b})")
+    monkeypatch.setattr(_build, "_FAILED", {})
+    dag = two_stage_pipeline()
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        sp.make_executor(dag, 37, 53, device=cuda_device)
+    kern = sp.stencil_pipeline
+    before = kern.launches
+    prog = sp.build_program(dag, 37, 53, 8)
+    x = torch.from_numpy(_frames(41, 1, 37, 53)).to(cuda_device)
+    with pytest.raises(RuntimeError, match="__no_such_intrinsic"):
+        kern(prog, [x])
+    eng = FrameEngine(cache=PlanCache(pipelines={dag.name: lambda: dag},
+                                      device=cuda_device),
+                      max_batch=1)
+    res = eng.run([FrameRequest(rid=0, pipeline=dag.name,
+                                frames={"in": _frames(42, 1, 37, 53)[0]})])
+    assert not isinstance(res[0], torch.Tensor)
+    assert "nvcc failed" in res[0].error
+    assert kern.launches == before
 
 
 @pytest.mark.cuda
@@ -586,7 +696,7 @@ def test_timed_out_k1_launch_leaves_next_rung_intact(cuda_device, wedge):
     after the ladder moved on) times out; the reference rung's output
     is returned, and the abandoned launch, run to its end, changes none
     of it. The attempt ran on its caller's card and stream."""
-    sp._lib()                       # build the library outside the timer
+    _build.load("stencil_pipeline")   # build it outside the timer
     release, finished = threading.Event(), threading.Event()
     seen = {}
 

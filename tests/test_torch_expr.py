@@ -1,17 +1,17 @@
-"""Stage functions lowered to the kernel's expression body (core/expr.py).
+"""Stage functions lowered (core/expr.py) and compiled into the kernel.
 
 Each case is a torch window function. It must lower
 (``expr.lower_stage``); its instructions run in torch
 (:func:`run_instructions`, the lowering alone) must equal the function;
-and, as stage "s" of a small pipeline (:func:`case_pipeline`), the
-kernel's expression body compiled for the host under the shim of
-``tests/test_torch_kernel_host.py`` must equal the function run eagerly
-(the plain version) on seeded frames. Equal means bit for bit, or within
+and, as stage "s" of a small pipeline (:func:`case_pipeline`), its
+generated body (``kernels/expr_codegen.py``) compiled into the kernel
+for the host under the shim of ``tests/test_torch_kernel_host.py`` must
+equal the function run eagerly (the plain version) on seeded frames. Equal means bit for bit, or within
 4 ULP at the array's scale for sums and means (eager PyTorch adds in its
 own order), exp, log and tanh (libraries differ in the last place) and a
 float32 ``torch.sqrt`` (the CPU's eager root is not always correctly
-rounded). Every aten op that lowers and every instruction of the kernel
-is covered by some case; ``tests/test_torch_cuda.py`` runs the same
+rounded). Every aten op that lowers and every instruction (each a rule
+of the generator) is covered by some case; ``tests/test_torch_cuda.py`` runs the same
 cases on the card. Then every refusal: an op that does not lower, an op
 that mixes pixels, value-dependent control flow, float64 and integer
 values, more windows, registers, instructions or constants than the
@@ -31,8 +31,10 @@ from torch.fx.experimental.proxy_tensor import make_fx
 from repro_torch.core import algorithms, expr
 from repro_torch.core.dag import Edge, window_keys
 from repro_torch.core.dsl import Pipeline
+from repro_torch.imaging import PlanCache
+from repro_torch.kernels import _build, expr_codegen
 from repro_torch.kernels import stencil_pipeline as sp
-from repro_torch.kernels._build import CSRC
+from test_torch_kernel_host import generic_pipeline
 from test_torch_kernel_host import host_kernel  # noqa: F401  (fixture)
 
 aten = torch.ops.aten
@@ -329,8 +331,8 @@ def test_instruction_list_equals_the_eager_function(name):
 
 
 def test_every_instruction_is_covered():
-    """The cases use every instruction of the expression body, so each
-    case body of the kernel runs in the tests above and on the card."""
+    """The cases use every instruction, so each rule of the generator
+    runs in the tests above and on the card."""
     used = set()
     for fn, shapes, _ in CASES.values():
         ex = expr.lower_stage("p", "s", fn, _edges(shapes))
@@ -338,13 +340,47 @@ def test_every_instruction_is_covered():
     assert used == set(expr.XOPS), sorted(set(expr.XOPS) - used)
 
 
-def test_instruction_codes_match_the_kernel():
-    """``expr.XOPS`` is the order of the kernel's ``enum XOp``."""
-    import re
-    src = (CSRC / "stencil_pipeline.cu").read_text()
-    body = re.search(r"enum XOp \{(.*?)\};", src, re.S).group(1)
-    names = [t.split("=")[0].strip() for t in body.split(",")]
-    assert names == [f"X_{op.upper()}" for op in expr.XOPS]
+def _all_ops(w):
+    """Every instruction but a constant's copy in one stage function."""
+    u, v = _one(w), _b(w)
+    keep = ((u < v) & (u <= 0.75)) | ~(u == v) & (v != 0.5) \
+        | (u * v > 0.25) & (u >= 0.5) | ~(u > 0.9)
+    exact = torch.where(keep, -(u / (v + 1.0)), torch.abs(u - v)) \
+        + torch.maximum(u, v) - torch.minimum(u, v) \
+        + torch.sqrt((u + 1.0).to(torch.float64)).to(torch.float32)
+    return exact + torch.exp(u) + torch.log(v + 0.5) + torch.tanh(u - v)
+
+
+def all_ops_pipeline():
+    """Producers "a" and "b" (a pixel and its neighbour), a stage of
+    :func:`_all_ops` and a constant stage (a copy) added to it."""
+    p = Pipeline("all-ops")
+    x = p.input("in")
+    a = p.stage("a", [(x, 1, 1)], _first)
+    b = p.stage("b", [(x, 1, 2)], _first)
+    k = p.stage("k", [(x, 1, 1)],
+                lambda w: torch.full_like(w["in"][..., 0, 0], 0.25))
+    s = p.stage("s", [(a, 1, 1), (b, 1, 1)], _all_ops)
+    o = p.stage("o", [(s, 1, 1), (k, 1, 1)],
+                lambda w: w["s"][..., 0, 0] + w["k"][..., 0, 0])
+    p.output("out", [(o, 1, 1)])
+    return p.build()
+
+
+def test_instruction_codes_match_the_kernel(host_kernel):
+    """Every instruction of ``expr.XOPS`` has a rule of the generator (a
+    load reads a window), and one program that uses all of them compiles
+    into the kernel under the shim and equals the eager function (within
+    4 ULP: exp, log and tanh are the C library's)."""
+    assert set(expr_codegen.RULES) | {"load"} == set(expr.XOPS)
+    dag = all_ops_pipeline()
+    x, _ = case_frames(dag, 2, 13, 53, 5)
+    prog = sp.build_program(dag, 13, 53, 3, frames=2)
+    used = {expr.XOPS[w & 255] for ex in prog.exprs.values()
+            for w in ex.code[:, 0]}
+    assert used == set(expr.XOPS), sorted(set(expr.XOPS) - used)
+    got = torch.from_numpy(host_kernel(prog, x))
+    assert_bounded(got, case_plain(dag, prog, torch.from_numpy(x), []))
 
 
 NAN_FNS = {
@@ -357,13 +393,15 @@ NAN_FNS = {
 }
 
 
+NAN_SHAPES = {"a": (1, 3, 3), "b": (1, 1, 1)}
+
+
 @pytest.mark.parametrize("op", sorted(NAN_FNS))
 def test_max_and_min_pass_a_nan_on(host_kernel, op):
     """maximum, minimum, clamp, amax and amin give NaN where an operand
     is NaN, as eager PyTorch does (the payload bodies' fmaxf would drop
     it); comparisons and where see a NaN as eager PyTorch does."""
-    dag = case_pipeline(f"nan-{op}", NAN_FNS[op],
-                        {"a": (1, 3, 3), "b": (1, 1, 1)})
+    dag = case_pipeline(f"nan-{op}", NAN_FNS[op], NAN_SHAPES)
     x, _ = case_frames(dag, 2, 13, 53, 0)
     x.reshape(-1)[::31] = np.nan
     prog = sp.build_program(dag, 13, 53, 8, frames=2)
@@ -408,17 +446,18 @@ def test_bare_pipelines_lower_every_computed_stage():
                  for r in rows[:int(prog.table[sp.H_NSTAGES])]]
         assert kinds.count("expr") == len(computed)
         assert int(prog.table[sp.H_EXPR]) == 1
-        # the instructions of each stage sit where its row says
+        # each stage's row names its generated body, which the
+        # program's fragment holds
         expr_rows = [r for r in rows[:int(prog.table[sp.H_NSTAGES])]
                      if sp.KINDS[r[sp.S_KIND]] == "expr"]
         for r, ex in zip(expr_rows, prog.exprs.values()):
-            off, n = r[sp.S_XOFF], r[sp.S_XLEN]
-            assert np.array_equal(prog.code[off:off + n], ex.code)
-        # a payload program has no expression stage, and its table is
-        # unchanged by the bare form's
+            assert r[sp.S_XID] == expr_codegen.stage_id(ex)
+            assert f"case {r[sp.S_XID]}: {expr_codegen.function_name(ex)}" \
+                in prog.source
+        # a payload program has no expression stage and no fragment
         plain = sp.build_program(f(), 16, 24, 8)
         assert int(plain.table[sp.H_EXPR]) == 0 and not plain.exprs
-        assert len(plain.code) == 0
+        assert plain.source == ""
 
 
 def test_launch_work_counts_the_lowered_operations():
@@ -558,7 +597,7 @@ def test_lowering_from_many_threads():
     the one built alone."""
     names = sorted(algorithms.ALGORITHMS)
     want = {n: sp.build_program(expr.bare_pipeline(
-        algorithms.ALGORITHMS[n]()), 16, 24, 8).code for n in names}
+        algorithms.ALGORITHMS[n]()), 16, 24, 8).source for n in names}
     errors, got = [], {}
 
     def build(i):
@@ -566,7 +605,7 @@ def test_lowering_from_many_threads():
         try:
             # a fresh DAG: new closures, so each thread traces anew
             dag = expr.bare_pipeline(algorithms.ALGORITHMS[name]())
-            got[i] = (name, sp.build_program(dag, 16, 24, 8).code)
+            got[i] = (name, sp.build_program(dag, 16, 24, 8).source)
         except Exception as e:            # reported below
             errors.append(repr(e))
     old = sys.getswitchinterval()
@@ -583,5 +622,197 @@ def test_lowering_from_many_threads():
     assert not any(t.is_alive() for t in threads)
     assert errors == []
     assert len(got) == 16
-    for name, code in got.values():
-        assert np.array_equal(code, want[name])
+    for name, source in got.values():
+        assert source == want[name]
+
+
+def conv_pipeline(taps, name="conv"):
+    """A 3x3 correlation with ``taps`` as a stage function of the user's
+    (the payload's eager function): its taps are the stage's constants."""
+    p = Pipeline(name)
+    c = p.stage("c", [(p.input("in"), 3, 3)], algorithms.conv_fn(taps).eager)
+    p.output("out", [(c, 1, 1)])
+    return p.build()
+
+
+TAPS = [np.random.RandomState(s).randn(3, 3).astype(np.float32)
+        for s in (30, 31)]
+
+
+def test_other_constants_share_the_fragment_and_the_library(host_kernel):
+    """Two programs that differ only in their stages' constants have one
+    fragment, one table and one library key; the constants reach the
+    kernel through the constant table, so each equals its own eager
+    function under the shim."""
+    progs = [sp.build_program(conv_pipeline(t), 13, 53, 3, frames=2)
+             for t in TAPS]
+    a, b = progs
+    assert a.source == b.source and a.source
+    assert np.array_equal(a.table, b.table)
+    assert not np.array_equal(a.wts, b.wts)
+    assert a.library_spec.name == b.library_spec.name
+    assert _build.expr_library(a.source, False, False).path \
+        == _build.expr_library(b.source, False, False).path
+    x, _ = case_frames(progs[0].dag, 2, 13, 53, 6)
+    for prog in progs:
+        exp = case_plain(prog.dag, prog, torch.from_numpy(x), [])
+        assert torch.equal(torch.from_numpy(host_kernel(prog, x)), exp)
+
+
+def test_a_changed_instruction_changes_the_key():
+    """A stage function with one instruction changed gets another id,
+    another fragment and another library; so does another
+    instantiation of the same fragment (depth 2)."""
+    shapes = {"a": (1, 1, 1), "b": (1, 1, 1)}
+    add, sub = (case_pipeline(n, fn, shapes) for n, fn in (
+        ("add", lambda w: _one(w) + _b(w)),
+        ("sub", lambda w: _one(w) - _b(w))))
+    pa, pb = (sp.build_program(d, 13, 53, 3) for d in (add, sub))
+    ia, ib = (expr_codegen.stage_id(p.exprs["s"]) for p in (pa, pb))
+    assert ia != ib
+    assert expr_codegen.function_name(pa.exprs["s"]) \
+        != expr_codegen.function_name(pb.exprs["s"])
+    assert pa.source != pb.source
+    assert pa.library_spec.name != pb.library_spec.name
+    deep = sp.build_program(add, 13, 53, 3, prefetch_depth=2)
+    assert deep.source == pa.source
+    assert deep.library_spec.name != pa.library_spec.name
+
+
+def two_stage_pipeline():
+    """Two expression stages of other shapes in one program: a gradient
+    magnitude over a 3x3 window and a threshold of it."""
+    def grad(w):
+        win = w["in"]
+        gx = win[..., 1, 2] - win[..., 1, 0]
+        gy = win[..., 2, 1] - win[..., 0, 1]
+        return gx * gx + gy * gy
+
+    def thresh(w):
+        g = w["g"][..., 0, 0]
+        return torch.where(g > 0.2, g, 0.0)
+    p = Pipeline("two-stages")
+    g = p.stage("g", [(p.input("in"), 3, 3)], grad)
+    t = p.stage("t", [(g, 1, 1)], thresh)
+    p.output("out", [(t, 1, 1)])
+    return p.build()
+
+
+def test_two_expression_stages_dispatch_each_to_its_own_function(
+        host_kernel):
+    """Each expression stage's row names its own generated function, the
+    fragment dispatches each id to it, and the program equals the eager
+    functions under the shim."""
+    dag = two_stage_pipeline()
+    prog = sp.build_program(dag, 13, 53, 3, frames=2)
+    rows = prog.table[sp.HDR:].reshape(-1, sp.STAGE_INTS)
+    ids = {}
+    for i, name in enumerate(("in", "g", "t")):
+        if name in prog.exprs:
+            ex = prog.exprs[name]
+            assert rows[i][sp.S_KIND] == sp.KINDS.index("expr")
+            assert rows[i][sp.S_XID] == expr_codegen.stage_id(ex)
+            ids[name] = (int(rows[i][sp.S_XID]),
+                         expr_codegen.function_name(ex))
+    assert len(ids) == 2 and len(set(ids.values())) == 2
+    for i, fn in ids.values():
+        assert f"case {i}: {fn}<kTemporal>(c, S);" in prog.source
+        assert prog.source.count(f"void {fn}(") == 1
+    x, _ = case_frames(dag, 2, 13, 53, 7)
+    exp = case_plain(dag, prog, torch.from_numpy(x), [])
+    assert torch.equal(torch.from_numpy(host_kernel(prog, x)), exp)
+
+
+def test_payload_programs_launch_from_the_shared_library():
+    """A payload program has no fragment and launches from the shared
+    library; its bare form from a library of its own."""
+    for f in {**algorithms.ALGORITHMS, **algorithms.VIDEO_ALGORITHMS}.values():
+        pay = sp.build_program(f(), 16, 24, 8)
+        bare = sp.build_program(expr.bare_pipeline(f()), 16, 24, 8)
+        assert pay.source == "" and not pay.exprs
+        assert pay.library_spec.name == "stencil_pipeline"
+        assert bare.library_spec.name.startswith("stencil_expr-")
+
+
+@pytest.mark.parametrize("name", ["harris-m", "canny-s", "tdenoise-t",
+                                  "generic", "tgeneric"])
+@pytest.mark.parametrize("bare", [False, True])
+def test_a_dags_libraries_are_its_programs_libraries(name, bare):
+    """What ``prebuild`` builds at a pipeline's first use is exactly the
+    set of libraries its programs launch from, at any shape, R, batch
+    and depth: the shared one for a payload DAG, the program's own at
+    depth 1 and at prefetch depth for one with an expression stage."""
+    dag = generic_pipeline(name == "tgeneric") if "generic" in name else (
+        algorithms.ALGORITHMS.get(name) or algorithms.VIDEO_ALGORITHMS[name])()
+    if bare:
+        dag = expr.bare_pipeline(dag)
+    want = {lib.name for lib in sp.dag_libraries(dag)}
+    got = {sp.build_program(dag, h, w, r, frames=f, prefetch_depth=d
+                            ).library_spec.name
+           for h, w, r, f in ((16, 24, 1, 1), (37, 53, 8, 3))
+           for d in (1, 2)}
+    assert got == want
+    assert len(want) == (2 if bare else 1)
+
+
+def test_a_failed_build_is_kept_and_raised_by_the_load(monkeypatch,
+                                                       tmp_path):
+    """``prebuild`` raises nothing; a library whose build failed raises
+    nvcc's output where the program's library is loaded or built, and
+    nvcc does not run for it again."""
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_FAILED", {})
+    monkeypatch.setattr(_build, "_LIBS", {})
+    ran = []
+
+    def failing(lib):
+        ran.append(lib.name)
+        return 0.25, f"nvcc failed for {lib.name}: no such intrinsic"
+    monkeypatch.setattr(_build, "_compile", failing)
+    dag = two_stage_pipeline()
+    seconds = sp.prebuild(dag)
+    assert sorted(seconds) == sorted(ran) \
+        == sorted(lib.name for lib in sp.dag_libraries(dag))
+
+    def no_nvcc(lib):
+        raise AssertionError(f"nvcc ran again for {lib.name}")
+    monkeypatch.setattr(_build, "_compile", no_nvcc)
+    prog = sp.build_program(dag, 13, 53, 3)
+    with pytest.raises(RuntimeError, match="no such intrinsic"):
+        sp.library(prog)
+    with pytest.raises(RuntimeError, match="no such intrinsic"):
+        sp.build_libraries([prog])
+    assert sp.prebuild(dag) == {}
+
+
+def test_prebuild_leaves_a_refusal_to_build_program(monkeypatch):
+    """A stage that does not lower: ``prebuild`` builds nothing and
+    raises nothing; ``build_program`` raises the refusal."""
+    def no_nvcc(lib):
+        raise AssertionError(f"nvcc ran for {lib.name}")
+    monkeypatch.setattr(_build, "_compile", no_nvcc)
+    fn, reads, what = REFUSALS["integer"]
+    dag = _pipeline(fn, reads, name="refused")
+    assert sp.prebuild(dag) == {}
+    with pytest.raises(ValueError, match=f"refused/s.*{what}"):
+        sp.build_program(dag, 13, 53, 3)
+
+
+def test_plan_cache_on_the_cpu_builds_no_library(monkeypatch):
+    """Only a cache on the card builds a pipeline's libraries when it
+    first meets it."""
+    def no_nvcc(lib):
+        raise AssertionError(f"nvcc ran for {lib.name}")
+    monkeypatch.setattr(_build, "_compile", no_nvcc)
+    dag = two_stage_pipeline()
+    cache = PlanCache(pipelines={dag.name: lambda: dag}, device="cpu")
+    assert cache.dag_for(dag.name) is cache.dag_for(dag.name)
+    assert cache.stats.exec_compile_s == 0
+
+
+def HOST_EXPR_DAGS():
+    """The expression stages the host-compiled kernel runs here."""
+    return [case_pipeline(n) for n in CASES] + [
+        case_pipeline(f"nan-{op}", NAN_FNS[op], NAN_SHAPES)
+        for op in NAN_FNS] + [all_ops_pipeline(), two_stage_pipeline()] + [
+        conv_pipeline(t) for t in TAPS]

@@ -12,14 +12,14 @@ versions of the same stage functions.
 
 The blends, drains and temporal convolutions are plain closures written
 once for both packages (they index and add, which torch and jnp spell
-alike); the port lowers them to the kernel's expression body. The
+alike); the port lowers them to expression stages of the kernel. The
 spatial convolutions come in two forms: the port's ``conv_fn`` (a
 built-in ``Payload``) and its bare eager function (lowered too). On the
 CPU every executor runs the kernel's plain version, the user's own
 functions; the single-frame and temporal tests also run the kernel
 itself, compiled for the host under the shim of
 ``tests/test_torch_kernel_host.py`` (every lowered stage through its
-expression body), against the oracle. ``tests/test_torch_cuda.py`` holds
+generated body), against the oracle. ``tests/test_torch_cuda.py`` holds
 the kernel on the card against the plain version.
 
 Tolerance: bitwise, else 3 ULP at the array's scale, as the JAX harness
@@ -63,6 +63,12 @@ def random_pipeline(seed: int, form: str = "payload",
         seed, conv=_CONV[form],
         pipeline=JaxPipeline if form == "jax" else Pipeline,
         temporal=temporal)
+
+
+def HOST_EXPR_DAGS():
+    """The DAGs whose expression stages the host-compiled kernel runs."""
+    return [random_pipeline(seed, form, temporal=t) for seed in SEEDS
+            for form in FORMS for t in (False, True)]
 
 
 @pytest.fixture(scope="module")
@@ -111,8 +117,9 @@ def test_generator_is_deterministic():
         a, b = (random_pipeline(3, temporal=temporal) for _ in range(2))
         assert [(e.producer, e.consumer, e.st, e.sh, e.sw) for e in a.edges] \
             == [(e.producer, e.consumer, e.st, e.sh, e.sw) for e in b.edges]
-        ea, eb = (sp.build_program(d, H, W, 8).code for d in (a, b))
-        assert np.array_equal(ea, eb)
+        pa, pb = (sp.build_program(d, H, W, 8) for d in (a, b))
+        assert np.array_equal(pa.table, pb.table)
+        assert pa.source == pb.source
 
 
 @pytest.mark.parametrize("form", FORMS)
@@ -126,7 +133,8 @@ def test_fuzz_single_frame(seed, form, frame, host_kernel):
                                device="cpu")({"in": frame})
         assert got.shape == (H, W)
         assert_close_to_oracle(got, exp)
-        # the kernel itself, its lowered stages through the expression body
+        # the kernel itself, its lowered stages through their generated
+        # bodies
         prog = sp.build_program(dag, H, W, rows)
         assert_close_to_oracle(host_kernel(prog, frame[None])[0], exp)
 

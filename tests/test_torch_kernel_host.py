@@ -22,12 +22,17 @@ has no barrier, so its CTAs run with all their threads (one after
 another); the tile kernel keeps ``blockDim`` 1 and NaN-filled shared
 memory. ``float2``/``float4`` are plain aligned structs there.
 
-The expression body (stage functions lowered to instructions,
-``core/expr.py``) runs under the same shim: the bare form of every
-registered pipeline (each payload replaced by its own eager function)
-must equal its payload form bit for bit, at every geometry, width and
-depth the payload forms are held at, and the fuzz harness's random DAGs
-(``repro_torch.core.fuzz``) must equal the plain version.
+Expression stages (stage functions lowered by ``core/expr.py`` and
+written out as CUDA functions by ``kernels/expr_codegen.py``) run under
+the same shim, their generated fragment included at the kernel's
+``STENCIL_EXPR`` hook: the bare form of every registered pipeline (each
+payload replaced by its own eager function) must equal its payload form
+bit for bit, at every geometry, width and depth the payload forms are
+held at, and the fuzz harness's random DAGs (``repro_torch.core.fuzz``)
+must equal the plain version. The stages a test module runs are compiled
+into one host library (the module's ``HOST_EXPR_DAGS``), and a program
+with a stage outside that list fails its test: a list that drifts from
+its tests shows at once, not as a compile more per program.
 
 This checks the kernel's index math, rings, halos, masks and operand
 table at launch geometries the card's tests do not reach; the threads
@@ -46,7 +51,7 @@ import torch
 
 from repro_torch.core import algorithms, compile_pipeline, expr, fuzz
 from repro_torch.core.dsl import Pipeline
-from repro_torch.kernels import conv2d_stencil
+from repro_torch.kernels import conv2d_stencil, expr_codegen
 from repro_torch.kernels import stencil_pipeline as sp
 from repro_torch.kernels._build import CSRC
 
@@ -125,7 +130,6 @@ static float* g_smem;
 #define __forceinline__ inline
 struct alignas(8) float2 { float x, y; };
 struct alignas(16) float4 { float x, y, z, w; };
-struct alignas(16) int4 { int x, y, z, w; };
 static float4 make_float4(float x, float y, float z, float w) {
   return float4{x, y, z, w};
 }
@@ -169,10 +173,20 @@ static void cp_async_wait(int n) {
 """
 
 _LAUNCHER = r"""
+// every instantiation: the fragment's bodies serve spatial and temporal,
+// depth 1 and prefetch programs alike
+static Kernel host_pick(int temporal, int prefetch) {
+  if (prefetch)
+    return temporal ? stencil_pipeline_kernel<true, true>
+                    : stencil_pipeline_kernel<false, true>;
+  return temporal ? stencil_pipeline_kernel<true, false>
+                  : stencil_pipeline_kernel<false, false>;
+}
+
 // returns the CTAs that ended with copies no wait covered
 extern "C" int host_launch(const int* table, const float* wts,
-                           const void* code, const void* const* feeds,
-                           void* const* outs, int gx, int gy, int gz) {
+                           const void* const* feeds, void* const* outs,
+                           int gx, int gy, int gz) {
   int unwaited = 0;
   Program P;
   memcpy(P.hdr, table, sizeof(P.hdr));
@@ -198,8 +212,7 @@ extern "C" int host_launch(const int* table, const float* wts,
         std::fill(sm.begin(), sm.end(), NAN);
         g_groups.assign(1, {});
         blockIdx = Dim3{x, y, z};
-        pick_kernel(P.hdr[H_TEMPORAL], P.hdr[H_DEPTH] > 1, P.hdr[H_EXPR])(
-            P, F, O, static_cast<const int4*>(code));
+        host_pick(P.hdr[H_TEMPORAL], P.hdr[H_DEPTH] > 1)(P, F, O);
         // a copy never waited for: the CTA ended before it landed
         for (const auto& g : g_groups) unwaited += !g.empty();
       }
@@ -242,9 +255,11 @@ extern "C" int host_conv2d(const float* img, const float* wts, float* out,
 """
 
 
-def _host_library(tmp_path_factory, source: str, launcher: str):
+def _host_library(tmp_path_factory, source: str, launcher: str,
+                  fragment: str | None = None):
     """``csrc/<source>``'s kernel body compiled for the host under the
-    shim, with ``launcher`` appended."""
+    shim, with ``launcher`` appended and ``fragment`` at the
+    STENCIL_EXPR hook."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler")
@@ -254,7 +269,14 @@ def _host_library(tmp_path_factory, source: str, launcher: str):
     assert decl in body
     body = body.replace(decl, "float* smem = g_smem;")
     d = tmp_path_factory.mktemp("host_kernel")
-    (d / "k.cpp").write_text(_SHIM + body + "}  // namespace\n" + launcher)
+    hook = ""
+    if fragment is not None:
+        (d / "expr.cuh").write_text(fragment)
+        hook = (f'#define STENCIL_EXPR "{d / "expr.cuh"}"\n'
+                "#define STENCIL_EXPR_TEMPORAL 0\n"
+                "#define STENCIL_EXPR_PREFETCH 0\n")
+    (d / "k.cpp").write_text(_SHIM + hook + body + "}  // namespace\n"
+                             + launcher)
     subprocess.run([cxx, "-O1", "-std=c++17", "-ffp-contract=off",
                     "-fno-strict-aliasing",
                     "-shared", "-fPIC", "-o", str(d / "k.so"),
@@ -262,30 +284,70 @@ def _host_library(tmp_path_factory, source: str, launcher: str):
     return ctypes.CDLL(str(d / "k.so"))
 
 
+# the worker's stencil host libraries by fragment (a module's fixture can
+# be set up again when the worker comes back to the module)
+_STENCIL_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def _stencil_library(tmp_path_factory, fragment: str) -> ctypes.CDLL:
+    lib = _STENCIL_LIBS.get(fragment)
+    if lib is None:
+        lib = _STENCIL_LIBS[fragment] = _host_library(
+            tmp_path_factory, "stencil_pipeline.cu", _LAUNCHER, fragment)
+        lib.host_launch.argtypes = [ctypes.c_void_p] * 4 \
+            + [ctypes.c_int] * 3
+        lib.host_launch.restype = ctypes.c_int
+    return lib
+
+
+def module_stages(dags) -> dict:
+    """{stage id: lowered stage} of every expression stage of ``dags``."""
+    stages = {}
+    for dag in dags:
+        for ex in sp.build_program(dag, 16, 64, 1).exprs.values():
+            stages[expr_codegen.stage_id(ex)] = ex
+    return stages
+
+
 @pytest.fixture(scope="module")
-def host_kernel(tmp_path_factory):
-    lib = _host_library(tmp_path_factory, "stencil_pipeline.cu", _LAUNCHER)
-    lib.host_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-    lib.host_launch.restype = ctypes.c_int
+def host_kernel(tmp_path_factory, request):
+    """Launch a program under the shim: one host library holds the
+    expression stages of the requesting module's ``HOST_EXPR_DAGS()``,
+    and a program with any other expression stage fails."""
+    make = getattr(request.module, "HOST_EXPR_DAGS", None)
+    stages = module_stages(make() if make else [])
+    lib = _stencil_library(tmp_path_factory,
+                           expr_codegen.expr_source(stages.values()))
 
     def launch(prog, x, states=()):
         """Output (and frame outputs, if any) of ``prog`` over input
         frames ``x`` and frame-ring ``states``."""
+        missing = {name for name, ex in prog.exprs.items()
+                   if expr_codegen.stage_id(ex) not in stages}
+        assert not missing, (f"{prog.dag.name}: stages {sorted(missing)} "
+                             f"are in no DAG of HOST_EXPR_DAGS()")
         outs = [np.full(x.shape, np.float32(-7.0))
                 for _ in range(1 + len(prog.frame_outs))]
         feeds = (ctypes.c_void_p * sp.MAX_FEEDS)(
             *[a.ctypes.data for a in (x, *states)])
         optrs = (ctypes.c_void_p * sp.MAX_OUTS)(
             *[a.ctypes.data for a in outs])
-        code = np.ascontiguousarray(prog.code)
         assert lib.host_launch(prog.table.ctypes.data, prog.wts.ctypes.data,
-                               code.ctypes.data if len(code) else None,
                                feeds, optrs, prog.grid_x, prog.grid_y,
                                x.shape[0]) == 0, "copies no wait covered"
         if prog.frame_outs:
             return outs[0], dict(zip(prog.frame_outs, outs[1:]))
         return outs[0]
     return launch
+
+
+def HOST_EXPR_DAGS():
+    """The expression stages this module runs: the bare forms and the
+    fuzz DAGs (payload and bare convolutions, spatial and temporal)."""
+    return [_dag(n, bare=True) for n in NAMES + TEMPORAL + ["generic"]] + [
+        fuzz.random_pipeline(seed, conv, temporal=t) for seed in range(8)
+        for conv in (algorithms.conv_fn, fuzz.bare_conv)
+        for t in (False, True)]
 
 
 @pytest.mark.parametrize("strip_w,target_ctas", [
