@@ -19,7 +19,12 @@ inputs. Each phase prints one JSON line:
                payload programs);
   3. kernel  — the fused stencil kernel against its plain version for the
                7 pipelines x R in {1, 8} x four frame shapes, single-frame
-               and batched (B=4, last slot an idle zero frame);
+               and batched (B=4, last slot an idle zero frame); then NaN
+               frames (NaN sprinkled in, and NaN on a grid that puts one
+               in every nms window) through the 4 pipelines whose payload
+               bodies take a max or a clamp (canny-s, canny-m, harris-s,
+               denoise-m) at depths 1 and 2, NaN positions equal and
+               every other bit equal;
   4. serve   — the spatial path, with the kernel's launch count over it,
                throughput, and per-pipeline kernel (per call and device
                time) / plain / bound times at B=4, 1080p, R=8, with the
@@ -193,9 +198,12 @@ inputs. Each phase prints one JSON line:
                frame-ring states, each equal to the payload form and the
                plain version; (b) the fuzz harness's DAGs, seeds 0-7,
                convolutions as payloads and lowered, spatial and
-               temporal, against the plain version; (c) four ops
+               temporal, against the plain version; (c) five ops
                pipelines that with the user pipelines run every
-               instruction; (d) the main path: a user pipeline through a
+               instruction: the "rounding" and "transcendental" ones pick
+               an op per pixel by its left neighbour, and a line gives
+               each op's worst ULP (rounding, casts and window indices 0,
+               the library functions within EXPR_BOUND_ULP); (d) the main path: a user pipeline through a
                resilient FrameEngine (fault free, every frame on the
                primary rung) and its temporal form through a resilient
                VideoEngine, both with an attempt timeout shorter than
@@ -260,6 +268,12 @@ from repro_torch.launch.mesh import H100_BF16_DENSE_FLOPS  # noqa: E402
 from repro_torch.launch.dryrun import attention_flops  # noqa: E402
 
 TOLERANCE_ULP = 0
+# the registered pipelines whose payload bodies take a max or a clamp,
+# and the NaN grid pitch (rows, columns) that puts a NaN in every window
+# of their first nms stage (denoise-m: finite blurs beside NaN
+# Laplacians), as tests/test_torch_nan.py sets them
+NAN_PITCH = {"canny-s": (9, 9), "canny-m": (7, 7), "harris-s": (4, 6),
+             "denoise-m": (7, 7)}
 # the expression body against eager PyTorch on the card where the two
 # round differently (core/expr.py): sum and mean add in another order (the
 # card's mean is the sum times the float32 reciprocal of the count), exp,
@@ -384,6 +398,41 @@ def frames(seed: int, n: int, h: int, w: int) -> np.ndarray:
     return np.random.RandomState(seed).rand(n, h, w).astype(np.float32)
 
 
+def nan_frames(name: str, kind: str, b: int, h: int, w: int,
+               seed: int) -> np.ndarray:
+    """``b`` seeded frames of values in [0, 4) with NaN pixels: 0.4% at
+    seeded positions ("sprinkled") or on ``name``'s NaN_PITCH grid with
+    the first and last row and column ("centres")."""
+    rng = np.random.RandomState(seed)
+    x = (4 * rng.rand(b, h, w)).astype(np.float32)
+    if kind == "sprinkled":
+        x[rng.rand(b, h, w) < 0.004] = np.nan
+    else:
+        py, px = NAN_PITCH[name]
+        for i in range(b):
+            rows = sorted({0, h - 1, *range(i % py, h, py)})
+            cols = sorted({0, w - 1, *range(2 * i % px, w, px)})
+            x[i][np.ix_(rows, cols)] = np.nan
+    return x
+
+
+def nan_equal(got: torch.Tensor, exp: torch.Tensor, where: str) -> int:
+    """Fails unless ``got`` has NaN where ``exp`` has and every other bit
+    equal (a NaN's payload may differ: max.NaN gives the canonical one);
+    returns the NaN pixels."""
+    if got.shape != exp.shape:
+        fail(f"{where}: shape {tuple(got.shape)} != {tuple(exp.shape)}")
+    nan = exp.isnan()
+    if not torch.equal(got.isnan(), nan):
+        fail(f"{where}: NaN at {int((got.isnan() != nan).sum())} other "
+             f"pixels")
+    bad = int((got[~nan].view(torch.int32)
+               != exp[~nan].view(torch.int32)).sum())
+    if bad:
+        fail(f"{where}: {bad} pixels differ from the plain version")
+    return int(nan.sum())
+
+
 def ulp_err(got: torch.Tensor, exp: torch.Tensor) -> tuple[float, float]:
     """(max |got - exp|, that error in ULP at the array's scale)."""
     if got.shape != exp.shape:
@@ -393,6 +442,51 @@ def ulp_err(got: torch.Tensor, exp: torch.Tensor) -> tuple[float, float]:
     err = (got - exp).abs().max().item()
     scale = float(np.spacing(np.float32(exp.abs().max().item())))
     return err, err / scale
+
+
+def nan_frames_check(dev) -> int:
+    """Phase 3's NaN frames: the 4 pipelines whose payload bodies take a
+    max or a clamp (PTX max.NaN / min.NaN) over frames with NaN sprinkled
+    in and on their NaN_PITCH grid, at every phase-3 shape, R 1 and 8,
+    depths 1 and 2, single and batched, equal to the plain version with
+    NaN positions equal and every other bit equal. Returns the cases."""
+    from repro_torch.core import algorithms
+    from repro_torch.core.codegen import compile_pipeline
+    from repro_torch.kernels import stencil_pipeline as sp
+    t0 = time.perf_counter()
+    nan_cases, nan_pixels = 0, 0
+    for name in sorted(NAN_PITCH):
+        dag = algorithms.ALGORITHMS[name]()
+        for h, w in SHAPES:
+            plan = compile_pipeline(dag, w)
+            for pattern in ("sprinkled", "centres"):
+                for r, depth in ((1, 1), (8, 1), (8, 2)):
+                    for batch in (None, SERVE_B):
+                        x = nan_frames(name, pattern, batch or 1, h, w,
+                                       SEED + nan_cases)
+                        x = torch.from_numpy(x if batch else x[0]).to(dev)
+                        ex = sp.make_executor(dag, h, w, batch=batch,
+                                              plan=plan, rows_per_step=r,
+                                              prefetch_depth=depth,
+                                              device=dev)
+                        before = sp.stencil_pipeline.launches
+                        got = ex({"in": x})
+                        torch.cuda.synchronize()
+                        if sp.stencil_pipeline.launches != before + 1:
+                            fail(f"{name} NaN frames: the kernel did not "
+                                 f"launch")
+                        nan_pixels += nan_equal(
+                            got, sp.stencil_pipeline_plain(dag, {"in": x}),
+                            f"{name} {h}x{w} {pattern} NaN frames R={r} "
+                            f"depth {depth} batch={batch}")
+                        nan_cases += 1
+    emit("kernel", part="nan_frames", pipelines=sorted(NAN_PITCH),
+         cases=nan_cases, kinds=["sprinkled", "centres"],
+         steps=[[1, 1], [8, 1], [8, 2]], shapes=[list(s) for s in SHAPES],
+         batches=[None, SERVE_B], nan_output_pixels=nan_pixels,
+         compare="NaN positions equal, every other bit equal",
+         seconds=time.perf_counter() - t0)
+    return nan_cases
 
 
 def tinternal():
@@ -2683,7 +2777,67 @@ def user_pipeline(temporal: bool = False):
     return p.build()
 
 
-OPS_KINDS = ("exact", "transcendental", "sums", "divide")
+OPS_KINDS = ("exact", "transcendental", "sums", "divide", "rounding")
+
+
+def rounding_ops(win) -> dict:
+    """The "rounding" kind's ops (exact: 0 ULP) over a 3x3 window whose
+    last element is the pixel: rounding to integers, fmod and remainder,
+    float-to-int casts and window indices (ties from a clamp at 0.5)."""
+    x = win[..., 2, 2] * 8.0 - 4.0                  # values in [-4, 4)
+    d = win[..., 0, 0] + 0.25
+    return {"floor": torch.floor(x), "ceil": torch.ceil(x),
+            "trunc": torch.trunc(x),
+            "round": torch.round(torch.floor(x * 4.0) / 2.0),
+            "frac": torch.frac(x), "sign": torch.sign(x),
+            "fmod": torch.fmod(x, d),
+            "remainder": torch.remainder(x, -d) + x % 1.5,
+            "int32": x.int().float(),
+            "int64": (x * 1000.0).long().float(),
+            "argmax": win.argmax(-1).float()[..., 1]
+            + 3.0 * win.clamp(min=0.5).flatten(-2).argmax(-1),
+            "argmin": win.argmin(-2).float()[..., 0]
+            + 3.0 * win.clamp(max=0.5).flatten(-2).argmin(-1)}
+
+
+def transcendental_ops(a) -> dict:
+    """The "transcendental" kind's ops (the libraries': within
+    EXPR_BOUND_ULP) of the pixel ``a`` in [0, 1): sin and cos over [-8,
+    8) and [-8192, 8192) (power-of-two scales: the same argument on every
+    device)."""
+    x, pos = a * 8.0 - 4.0, a + 0.25
+    return {"exp": torch.exp(x), "log": torch.log(pos),
+            "tanh": torch.tanh(x), "rsqrt": torch.rsqrt(pos),
+            "sigmoid": torch.sigmoid(x), "erf": torch.erf(x),
+            "sin": torch.sin(a * 16.0 - 8.0),
+            "cos": torch.cos(a * 16.0 - 8.0),
+            "sin_large": torch.sin(a * 16384.0 - 8192.0),
+            "cos_large": torch.cos(a * 16384.0 - 8192.0),
+            "pow": pos ** 1.7, "pow_tensor": torch.pow(pos, a),
+            "pow_scalar": 2.0 ** x}
+
+
+SELECTED_OPS = {"rounding": tuple(rounding_ops(torch.zeros(1, 3, 3))),
+                "transcendental": tuple(transcendental_ops(torch.zeros(1)))}
+
+
+def select_op(ops: dict, left):
+    """Op i of ``ops`` at a pixel whose left neighbour ``left`` (in [0,
+    1)) has floor(n * left) == i."""
+    vals = list(ops.values())
+    k = torch.floor(left * float(len(vals)))
+    out = vals[-1]
+    for i in reversed(range(len(vals) - 1)):
+        out = torch.where(k == float(i), vals[i], out)
+    return out
+
+
+def op_classes(x, n: int):
+    """The op index each pixel of frames ``x`` takes in :func:`select_op`
+    (its left neighbour, 0 at column 0, times ``n``, floored)."""
+    left = torch.zeros_like(x)
+    left[..., 1:] = x[..., :-1]
+    return torch.floor(left * float(n))
 
 
 def ops_pipeline(kind: str = "exact"):
@@ -2691,8 +2845,11 @@ def ops_pipeline(kind: str = "exact"):
     one kind of rounding a pipeline: producers "a" (the pixel) and "b" (a
     neighbour), then ``exact``: a quotient of two pixels, products,
     comparisons, logic, where, abs, max, min, negation and a constant
-    stage (a copy), equal to eager PyTorch on the card bit for bit; or,
-    held to EXPR_BOUND_ULP, ``transcendental``: exp, log and tanh;
+    stage (a copy), equal to eager PyTorch on the card bit for bit;
+    ``rounding``: :func:`rounding_ops`, one a pixel picked by its left
+    neighbour (:func:`select_op`), bit for bit; or, held to
+    EXPR_BOUND_ULP, ``transcendental``: :func:`transcendental_ops` (exp,
+    log, tanh, rsqrt, sigmoid, erf, sin, cos, powf) picked likewise;
     ``sums``: a sum and a mean over a 3x3 window; ``divide``: a division
     by a Python scalar (eager CUDA multiplies by its reciprocal)."""
     from repro_torch.core.dsl import Pipeline
@@ -2708,8 +2865,11 @@ def ops_pipeline(kind: str = "exact"):
             + torch.maximum(u, v) - torch.minimum(u, v)
 
     def transcendental(w):
-        u, v = w["a"][..., 0, 0], w["b"][..., 0, 0]
-        return torch.exp(u) + torch.log(v + 0.5) + torch.tanh(u - v)
+        return select_op(transcendental_ops(w["a"][..., 0, 0]),
+                         w["b"][..., 0, 0])
+
+    def rounding(w):
+        return select_op(rounding_ops(w["a"]), w["b"][..., 0, 0])
 
     def sums(w):
         win = w["a"]
@@ -2722,12 +2882,13 @@ def ops_pipeline(kind: str = "exact"):
     x = p.input("in")
     a = p.stage("a", [(x, 1, 1)], first)
     fn = {"exact": exact, "transcendental": transcendental, "sums": sums,
-          "divide": divide}[kind]
+          "divide": divide, "rounding": rounding}[kind]
     if kind in ("sums", "divide"):
         out = p.stage("s", [(a, 3, 3) if kind == "sums" else (a, 1, 1)], fn)
     else:
         b = p.stage("b", [(x, 1, 2)], first)
-        out = p.stage("s", [(a, 1, 1), (b, 1, 1)], fn)
+        out = p.stage("s", [(a, 3, 3) if kind == "rounding" else (a, 1, 1),
+                            (b, 1, 1)], fn)
     if kind == "exact":
         k = p.stage("k", [(x, 1, 1)],
                     lambda w: torch.full_like(w["in"][..., 0, 0], 0.25))
@@ -2865,12 +3026,35 @@ def expr_phase(dev, mem_rate: float, flop_rate: float, sms: int) -> dict:
     # (c) every instruction of the expression body: the ops pipelines at
     # depths 1 and 2 (the user pipelines below take sqrt and the rest)
     x = torch.from_numpy(frames(17800, SERVE_B, SERVE_H, SERVE_W)).to(dev)
+    op_ulp = {k: {} for k in SELECTED_OPS}       # kind -> op -> worst ULP
     for kind in OPS_KINDS:
         dag = ops_pipeline(kind)
+        bound = TOLERANCE_ULP if kind in ("exact", "rounding") \
+            else EXPR_BOUND_ULP
         for depth in (1, 2):
             _, got, exp = launch(dag, x, [], depth)
-            check(got, exp, f"{dag.name} depth {depth}",
-                  TOLERANCE_ULP if kind == "exact" else EXPR_BOUND_ULP)
+            check(got, exp, f"{dag.name} depth {depth}", bound)
+            if kind not in SELECTED_OPS:
+                continue
+            cls = op_classes(x, len(SELECTED_OPS[kind]))
+            for i, op in enumerate(SELECTED_OPS[kind]):
+                at = cls == i
+                if not bool(at.any()):
+                    fail(f"expr {dag.name}: no pixel takes {op}")
+                _, ulp = ulp_err(got[at], exp[at])
+                if ulp > bound:
+                    fail(f"expr {dag.name} depth {depth}: {op} differs by "
+                         f"{ulp} ULP (bound {bound})")
+                op_ulp[kind][op] = max(op_ulp[kind].get(op, 0.0), ulp)
+    emit("expr", part="ops", worst_ulp=op_ulp,
+         bounds={"rounding": TOLERANCE_ULP,
+                 "transcendental": EXPR_BOUND_ULP},
+         arguments={"sin, cos": [-8.0, 8.0],
+                    "sin_large, cos_large": [-8192.0, 8192.0],
+                    "exp, tanh, sigmoid, erf": [-4.0, 4.0],
+                    "log, rsqrt, pow, pow_tensor": [0.25, 1.25],
+                    "pow_scalar": "2 ** [-4, 4)"},
+         ulp_at="each op's pixels' scale")
 
     # (d) the main path: a user pipeline through a resilient FrameEngine
     # (fault free) and its temporal form through a resilient VideoEngine,
@@ -3352,6 +3536,8 @@ def main() -> None:
          max_abs_err=max_err, max_ulp=max_ulp,
          tolerance_ulp=TOLERANCE_ULP)
 
+    nan_cases = nan_frames_check(dev)
+
     # ------------------------------------------------- 4. the main path
     engine = FrameEngine(device=dev, max_batch=SERVE_B,
                          rows_per_step=SERVE_R,
@@ -3483,6 +3669,8 @@ def main() -> None:
         "launches_perf": perf["spatial"],
         "launches_examples": ex["spatial"],
         "max_abs_err": max_err, "max_ulp": max_ulp,
+        "nan_frame_cases": nan_cases,
+        "max_form": "PTX max.NaN.f32 / min.NaN.f32 (nms, denoise_comb)",
         "ms": sum(p["ms"] for p in per.values()),
         "device_ms": sum(p["device_ms"] for p in per.values()),
         **k1_entry_resources(per, "spatial"),

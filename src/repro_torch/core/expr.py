@@ -31,13 +31,29 @@ window element loaded just before its first use) and given registers by
 a linear scan. These aten ops lower (:func:`lowerable_ops`):
 
   * arithmetic: add, sub, rsub, mul, div (true division), reciprocal,
-    neg, abs, sqrt, exp, log, tanh, pow with exponent 1 or 2 (x * x, as
-    eager PyTorch computes it), maximum, minimum, clamp, clamp_min,
+    neg, abs, sqrt, exp, log, tanh, maximum, minimum, clamp, clamp_min,
     clamp_max;
+  * rounding: floor, ceil, trunc, round (half to even), frac (x -
+    trunc(x)), sign and sgn ((0 < x) - (x < 0), eager PyTorch's), fmod,
+    and remainder (fmod, then + b where it is not 0 and its sign is not
+    b's, eager PyTorch's formula; Tensor, Scalar and Scalar_Tensor);
+  * the libraries' functions: rsqrt, sigmoid (1 / (1 + exp(-x)), eager
+    PyTorch's order), sin, cos, erf, and pow: Tensor_Tensor and Scalar
+    (a number base) take powf; a number exponent takes eager PyTorch's
+    cases, 0 (ones, a NaN base too), 1 (a copy), 2 and 3 (x * x, x * x *
+    x), -1 and -2 (1 / x, 1 / (x * x)), 0.5 and -0.5 (sqrt, rsqrt), and
+    powf of the exponent rounded to float32 for any other;
   * comparisons (lt, le, gt, ge, eq, ne) and where; logical and, or and
     not (and bitwise ones on bool);
   * reductions over window axes: amax, amin, max.dim / min.dim (values
-    only), sum, mean;
+    and indices), sum, mean, and argmax / argmin over one window axis:
+    the first index of the largest (smallest) element, a NaN's first,
+    as eager PyTorch and jnp give it;
+  * integers: window indices and casts of a float32 value to int32 or
+    int64 (a truncation, the device's own cast), read where torch turns
+    them into float32 (``.float()``, a comparison, arithmetic with a
+    float); an op that gives an integer tensor from them (integer
+    arithmetic) does not lower, nor does a cast between integer types;
   * views over window axes: select, slice, unsqueeze, squeeze, view,
     reshape, permute, transpose, expand, unbind, cat, stack;
   * constants: Python scalars and float32 or bool tensors the function
@@ -46,23 +62,39 @@ a linear scan. These aten ops lower (:func:`lowerable_ops`):
     rounded float32 root that ``algorithms._sqrt_rn`` takes.
 
 Any other aten op raises ValueError naming the pipeline, the stage and
-the op. Numerics: a Python scalar is rounded to float32 first, as eager
-PyTorch does for a float32 tensor; each instruction rounds once, so the
-kernel equals the eager function bit for bit, with four exceptions:
+the op; so do indexing by a tensor (a lookup table), cumulative ops and
+a reduction or an index over every axis. Each instruction counts as one
+operation of the launch's work (a sin as one, sigmoid as its four).
+Numerics: a Python scalar is rounded to float32 first, as eager PyTorch
+does for a float32 tensor; each instruction rounds once, so the kernel
+equals the eager function bit for bit (rounding, fmod, remainder, the
+casts and the indices too), with these exceptions:
 
   * sum and mean: eager PyTorch adds in its own order, and on CUDA takes
     a mean as the sum times the float32 reciprocal of the count;
-  * exp, log and tanh: the CUDA library's, which differ from the CPU's
-    by an ULP or two;
+  * exp, log, tanh, rsqrt, sigmoid, sin, cos, erf and powf: the CUDA
+    library's, which differ from the CPU's by a few ULP (4 at the
+    array's scale is the bound the tests hold, for sin and cos over
+    [-8, 8) and [-8192, 8192));
   * division by a number (a Python scalar or a 0-d CPU tensor): eager
     PyTorch on CUDA multiplies by the number's float32 reciprocal, the
     kernel divides, correctly rounded, as eager PyTorch on the CPU does.
     The two differ by at most 1 ULP of the quotient;
-  * sqrt: eager float32 torch.sqrt on the CPU is not always correctly
-    rounded (1 ULP off at times); the kernel's root is, as eager CUDA's.
+  * sqrt (and pow 0.5): eager float32 torch.sqrt on the CPU is not
+    always correctly rounded (1 ULP off at times); the kernel's root is,
+    as eager CUDA's;
+  * pow -2: eager PyTorch divides 1.0 in float64 by x * x and rounds to
+    float32, the kernel divides in float32: the two round differently
+    only where the float64 quotient lies on a float32 halfway point.
 
-max, min, clamp, amax and amin pass a NaN on, as eager PyTorch does (the
-built-in payload bodies take fmaxf / fminf, which drop it).
+max, min, clamp, amax and amin pass a NaN on, as eager PyTorch does
+(``max_nan`` / ``min_nan``: one PTX max.NaN / min.NaN on the card, whose
+NaN is the canonical one rather than the operand's). Where eager
+PyTorch and the reference's jnp differ, the kernel follows eager
+PyTorch, its plain version: sign(NaN) is 0 and sign(-0.0) is +0.0
+(jnp.sign gives NaN and -0.0); a NaN or out-of-range value cast to an
+integer is the device's cast (INT_MIN on the CPU; 0 for a NaN and
+saturation on CUDA), where XLA gives 0 and saturates.
 """
 from __future__ import annotations
 
@@ -84,7 +116,9 @@ from .dag import Edge, PipelineDAG, window_keys
 # constant of the stage (~k: constant k).
 XOPS = ("load", "copy", "add", "sub", "mul", "div", "max", "min", "neg",
         "abs", "sqrt", "exp", "log", "tanh", "lt", "le", "gt", "ge", "eq",
-        "ne", "where", "and", "or", "not")
+        "ne", "where", "and", "or", "not", "floor", "ceil", "trunc",
+        "round", "fmod", "rsqrt", "sin", "cos", "erf", "pow", "take_max",
+        "take_min", "toi32", "toi64")
 # instructions that are no float32 operation of the stage's arithmetic
 _FREE = ("load", "copy", "where")
 
@@ -132,7 +166,9 @@ class _V:
     tensor's shape is (2, 3) + arr.shape (it varies by pixel), else
     arr.shape (a constant). ``kind``: "f" float32, "b" bool (0 / 1), "d" a
     float64 copy of float32 nodes, "s" the float64 root of such a copy,
-    "i" indices (refused where read)."""
+    "i" integers (int32 or int64 window indices and float-to-int casts,
+    held as the float32 of their value: read where torch converts them to
+    float32, as in a comparison, a ``.float()`` or a sum with a float)."""
     arr: np.ndarray
     lead: bool
     kind: str = "f"
@@ -211,8 +247,6 @@ class _Lowering:
             if v.kind in ("d", "s"):
                 raise _Refused("float64 outside x.to(float64).sqrt()"
                                ".to(float32)")
-            if v.kind == "i":
-                raise _Refused("an index result (max/min indices)")
 
     def broadcast(self, vs: Sequence[_V]) -> tuple[list[np.ndarray], bool]:
         """The operands' node arrays broadcast over one per-pixel shape,
@@ -288,6 +322,29 @@ class _Lowering:
             out = out.reshape(shape)
         return _V(out, v.lead)
 
+    def arg_fold(self, take: str, v: _V, dim: int, keepdim: bool) -> _V:
+        """Indices (kind "i") of the first largest (``take_max``) or
+        smallest (``take_min``) element along window axis ``dim``, a NaN
+        first, as torch.argmax / argmin give them: per element after the
+        first, ``t = take(x, best)``, then ``best`` and the index move to
+        it where ``t``."""
+        self.check_float(v)
+        ax = self.axis(v, dim)
+        moved = np.moveaxis(v.arr, ax, -1)
+
+        def fold(idx):
+            elems = moved[idx]
+            best, at = elems[0], self.g.const(0.0)
+            for k, e in enumerate(elems[1:], 1):
+                t = self.g.node((take, e, best))
+                best = self.g.node(("where", t, e, best))
+                at = self.g.node(("where", t, self.g.const(float(k)), at))
+            return at
+        out = _objs(moved.shape[:-1], fold)
+        if keepdim:
+            out = np.expand_dims(out, ax)
+        return _V(out, v.lead, "i")
+
     def view(self, v: _V, shape: Sequence[int]) -> _V:
         """``v`` reshaped to the traced tensor shape ``shape``."""
         shape = tuple(int(s) for s in shape)
@@ -338,11 +395,37 @@ def _rules():
 
     def unary(op):
         return lambda L, n, a, kw: L.elementwise(op, a[0])
-    for name in ("neg", "abs", "exp", "log", "tanh"):
+    for name in ("neg", "abs", "exp", "log", "tanh", "floor", "ceil",
+                 "trunc", "round", "rsqrt", "sin", "cos", "erf"):
         R[getattr(aten, name).default] = unary(name)
     # c / x traces as reciprocal(x) * c; eager PyTorch divides 1 by x
     R[aten.reciprocal.default] = \
         lambda L, n, a, kw: L.elementwise("div", 1.0, a[0])
+    # eager PyTorch's own formulas: x - trunc(x); (0 < x) - (x < 0), so
+    # sign(NaN) is 0; 1 / (1 + exp(-x))
+    R[aten.frac.default] = lambda L, n, a, kw: L.elementwise(
+        "sub", a[0], L.elementwise("trunc", a[0]))
+    R[aten.sign.default] = R[aten.sgn.default] = \
+        lambda L, n, a, kw: L.elementwise(
+            "sub", L.elementwise("gt", a[0], 0.0, kind="b"),
+            L.elementwise("lt", a[0], 0.0, kind="b"))
+    R[aten.sigmoid.default] = lambda L, n, a, kw: L.elementwise(
+        "div", 1.0, L.elementwise("add", 1.0, L.elementwise(
+            "exp", L.elementwise("neg", a[0]))))
+    R[aten.fmod.Tensor] = R[aten.fmod.Scalar] = binary("fmod")
+
+    def remainder(L, n, a, kw):
+        """fmod, then + b where it is not 0 and its sign is not b's."""
+        x, y = a[0], a[1]
+        m = L.elementwise("fmod", x, y)
+        flip = L.elementwise("and", L.elementwise("ne", m, 0.0, kind="b"),
+                             L.elementwise(
+                                 "ne", L.elementwise("lt", y, 0.0, kind="b"),
+                                 L.elementwise("lt", m, 0.0, kind="b"),
+                                 kind="b"), kind="b")
+        return L.elementwise("where", flip, L.elementwise("add", m, y), m)
+    for ov in ("Tensor", "Scalar", "Scalar_Tensor"):
+        R[getattr(aten.remainder, ov)] = remainder
 
     def logical_not(L, n, a, kw):
         return L.elementwise("not", a[0], kind="b")
@@ -362,14 +445,34 @@ def _rules():
     R[aten.sqrt.default] = sqrt
 
     def pow_(L, n, a, kw):
-        e = a[1]
-        if e == 2:
-            return L.elementwise("mul", a[0], a[0])
+        """Eager PyTorch's cases of a number exponent: 0 fills ones (a
+        NaN base too), 1 copies, 2, 3, -1 and -2 multiply and divide, 0.5
+        and -0.5 take sqrt and rsqrt; any other exponent, rounded to
+        float32, takes powf."""
+        x, e = a[0], a[1]
+        if isinstance(e, bool) or not isinstance(e, (int, float)):
+            raise _Refused(f"pow with exponent {e!r}")
+        if e == 0:
+            L.check_float(x)
+            return L.full(x, None, 1.0)
         if e == 1:
-            L.check_float(a[0])
-            return a[0]
-        raise _Refused(f"pow with exponent {e!r} (1 and 2 lower)")
+            L.check_float(x)
+            return x
+        if e == 0.5:
+            return L.elementwise("sqrt", x)
+        if e == -0.5:
+            return L.elementwise("rsqrt", x)
+        if e == -1:
+            return L.elementwise("div", 1.0, x)
+        if e in (2, 3, -2):
+            sq = L.elementwise("mul", x, x)
+            if e == 3:
+                return L.elementwise("mul", sq, x)
+            return L.elementwise("div", 1.0, sq) if e == -2 else sq
+        return L.elementwise("pow", x, e)
     R[aten.pow.Tensor_Scalar] = pow_
+    R[aten.pow.Tensor_Tensor] = binary("pow")
+    R[aten.pow.Scalar] = binary("pow")
 
     def clamp(L, n, a, kw):
         lo = a[1] if len(a) > 1 else kw.get("min")
@@ -407,11 +510,22 @@ def _rules():
     def maxmin_dim(op):
         def rule(L, n, a, kw):
             keep = a[2] if len(a) > 2 else kw.get("keepdim", False)
-            v = L.reduce(op, a[0], a[1], keep)
-            return (v, _V(v.arr, v.lead, "i"))
+            return (L.reduce(op, a[0], a[1], keep),
+                    L.arg_fold(f"take_{op}", a[0], a[1], keep))
         return rule
     R[aten.max.dim] = maxmin_dim("max")
     R[aten.min.dim] = maxmin_dim("min")
+
+    def arg_reduce(take):
+        def rule(L, n, a, kw):
+            dim = a[1] if len(a) > 1 else kw.get("dim")
+            keep = a[2] if len(a) > 2 else kw.get("keepdim", False)
+            if dim is None:
+                raise _Refused("an index over every axis (it mixes pixels)")
+            return L.arg_fold(take, a[0], dim, keep)
+        return rule
+    R[aten.argmax.default] = arg_reduce("take_max")
+    R[aten.argmin.default] = arg_reduce("take_min")
 
     # ---- views
     def select(L, n, a, kw):
@@ -512,10 +626,17 @@ def _rules():
             if v.kind == "s":                  # the correctly rounded root
                 return _V(_objs(v.arr.shape, lambda i: L.g.node(
                     ("sqrt", v.arr[i]))), v.lead)
-            if v.kind in ("d", "f", "b"):
+            if v.kind in ("d", "f", "b", "i"):
                 return _V(v.arr, v.lead, "f")
-        if dt == torch.bool and v.kind in ("f", "b"):
+        if dt == torch.bool and v.kind in ("f", "b", "i"):
             return L.elementwise("ne", v, 0.0, kind="b")
+        if dt in _INTS:
+            if v.kind == "f":                  # truncation, as C casts
+                return L.elementwise(_INTS[dt], v, kind="i")
+            if v.kind == "b":
+                return _V(v.arr, v.lead, "i")
+            if v.kind == "i":
+                raise _Refused("a conversion between integer types")
         raise _Refused(f"a conversion to {dt}")
     R[aten._to_copy.default] = to_copy
 
@@ -533,6 +654,22 @@ def _rules():
 
 
 _RULES = _rules()
+
+# integer dtypes: the instruction that casts a float32 value to each
+_INTS = {torch.int32: "toi32", torch.int64: "toi64"}
+
+
+# the aten ops that may give an integer tensor: window indices, casts and
+# views (integer arithmetic is refused)
+_aten = torch.ops.aten
+_INDEX_OPS = frozenset((
+    _aten.argmax.default, _aten.argmin.default, _aten._to_copy.default,
+    _aten.select.int, _aten.slice.Tensor, _aten.view.default,
+    _aten._unsafe_view.default, _aten.squeeze.default, _aten.squeeze.dim,
+    _aten.squeeze.dims, _aten.unsqueeze.default, _aten.expand.default,
+    _aten.permute.default, _aten.transpose.int, _aten.unbind.int,
+    _aten.cat.default, _aten.stack.default, _aten.alias.default,
+    _aten.clone.default, _aten.detach.default))
 
 
 def lowerable_ops() -> tuple[str, ...]:
@@ -604,7 +741,13 @@ def _lower_graph(gm: torch.fx.GraphModule,
             if rule is None:
                 raise _Refused(f"aten op {n.target} does not lower")
             dt = _meta_dtype(n)
-            if dt not in (torch.float32, torch.bool, None) and not (
+            if dt in _INTS:
+                if n.target not in _INDEX_OPS:
+                    raise _Refused(f"aten op {n.target} gives {dt}: "
+                                   f"integer arithmetic does not lower "
+                                   f"(indices and float-to-int casts do, "
+                                   f"read as float32 or compared)")
+            elif dt not in (torch.float32, torch.bool, None) and not (
                     dt == torch.float64 and n.target in (
                         torch.ops.aten._to_copy.default,
                         torch.ops.aten.sqrt.default)):

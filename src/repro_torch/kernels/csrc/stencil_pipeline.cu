@@ -96,7 +96,9 @@
 // Numerics: every product and sum goes through the _rn intrinsics (and the
 // library is built with -fmad=false), in the reference's order, and sqrt
 // is __fsqrt_rn. The eager PyTorch version does one rounding per
-// operation in the same order, so the two agree bit for bit.
+// operation in the same order, so the two agree bit for bit. A max or a
+// clamp passes a NaN on (max_nan / min_nan), as amax and torch.clamp do,
+// so NaN frames agree too, NaN positions equal.
 //
 // Prefetch depth d >= 2 (the kPrefetch instantiations). The TPU kernel
 // stages every feed through a (d, R, W) VMEM ring filled by
@@ -513,6 +515,30 @@ __device__ __forceinline__ void stage_feed(const Ctx& c, const int* S) {
 }
 
 // ------------------------------------------------------------ pointwise
+// max and min that pass a NaN on, as torch.maximum, amax and clamp and
+// the reference's jnp.max and jnp.clip do (fmaxf / fminf return the other
+// operand). On the card one instruction, PTX max.NaN / min.NaN (sm_80+),
+// whose NaN is the canonical one (0x7fffffff) rather than the operand's;
+// the host rehearsal takes the same rule as a select.
+__device__ __forceinline__ float max_nan(float a, float b) {
+#ifdef __CUDA_ARCH__
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+#else
+  return a != a ? a : b != b ? b : fmaxf(a, b);
+#endif
+}
+__device__ __forceinline__ float min_nan(float a, float b) {
+#ifdef __CUDA_ARCH__
+  float d;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+#else
+  return a != a ? a : b != b ? b : fminf(a, b);
+#endif
+}
+
 template <int OP> struct Arity { static constexpr int n = 1; };
 template <> struct Arity<OP_MAG> { static constexpr int n = 2; };
 template <> struct Arity<OP_PROD> { static constexpr int n = 2; };
@@ -537,7 +563,7 @@ __device__ __forceinline__ float point(const float* a, float k) {
   } else if constexpr (OP == OP_UNSHARP) {
     return __fadd_rn(a[0], __fmul_rn(k, __fsub_rn(a[0], a[1])));
   } else if constexpr (OP == OP_DENOISE_COMB) {
-    const float e = fminf(fmaxf(fabsf(a[2]), 0.f), 1.f);
+    const float e = min_nan(max_nan(fabsf(a[2]), 0.f), 1.f);
     return __fadd_rn(__fmul_rn(e, a[0]), __fmul_rn(__fsub_rn(1.f, e), a[1]));
   } else if constexpr (OP == OP_HARRIS_RESP) {
     return __fsub_rn(a[0], __fmul_rn(__fmul_rn(k, a[0]), a[0]));
@@ -619,7 +645,7 @@ __device__ __forceinline__ void stage_nms3(const Ctx& c, const int* S) {
 #pragma unroll
       for (int dy = 0; dy < 3; ++dy)
 #pragma unroll
-        for (int dx = 0; dx < 3; ++dx) m = fmaxf(m, win.v[dy][dx]);
+        for (int dx = 0; dx < 3; ++dx) m = max_nan(m, win.v[dy][dx]);
       out.put(c, i, ctr >= m ? ctr : 0.f);
     }
   }
@@ -770,7 +796,7 @@ __device__ __forceinline__ void stage_generic(const Ctx& c, const int* S) {
                                     : tap(0, sh - 1, sw - 1);
           float m = tap(0, 0, 0);
           for (int dy = 0; dy < sh; ++dy)
-            for (int dx = 0; dx < sw; ++dx) m = fmaxf(m, tap(0, dy, dx));
+            for (int dx = 0; dx < sw; ++dx) m = max_nan(m, tap(0, dy, dx));
           v = ctr >= m ? ctr : 0.f;
           break;
         }
@@ -795,7 +821,7 @@ __device__ __forceinline__ void stage_generic(const Ctx& c, const int* S) {
         }
         case OP_DENOISE_COMB: {
           const float o = tap(0, 0, 0), b = tap(1, 0, 0), l = tap(2, 0, 0);
-          const float e = fminf(fmaxf(fabsf(l), 0.f), 1.f);
+          const float e = min_nan(max_nan(fabsf(l), 0.f), 1.f);
           v = __fadd_rn(__fmul_rn(e, o), __fmul_rn(__fsub_rn(1.f, e), b));
           break;
         }
@@ -811,15 +837,6 @@ __device__ __forceinline__ void stage_generic(const Ctx& c, const int* S) {
 }
 
 // ----------------------------------------------------------- expression
-// torch.maximum / minimum: a NaN operand gives NaN (fmaxf / fminf, which
-// the payload bodies take, would drop it)
-__device__ __forceinline__ float max_nan(float a, float b) {
-  return a != a ? a : b != b ? b : fmaxf(a, b);
-}
-__device__ __forceinline__ float min_nan(float a, float b) {
-  return a != a ? a : b != b ? b : fminf(a, b);
-}
-
 // The program's generated stage bodies and stage_generated<kTemporal>(c,
 // S), which runs the one whose id is S[S_XID] (a fragment written by
 // repro_torch/kernels/expr_codegen.py, named where its library is built).

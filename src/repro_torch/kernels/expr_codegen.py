@@ -62,6 +62,23 @@ RULES = {
     "and": "{a} != 0.f && {b} != 0.f ? 1.f : 0.f",
     "or": "{a} != 0.f || {b} != 0.f ? 1.f : 0.f",
     "not": "{a} == 0.f ? 1.f : 0.f",
+    "floor": "floorf({a})",
+    "ceil": "ceilf({a})",
+    "trunc": "truncf({a})",
+    "round": "rintf({a})",              # half to even, as torch.round
+    "fmod": "fmodf({a}, {b})",
+    "rsqrt": "rsqrtf({a})",
+    "sin": "sinf({a})",
+    "cos": "cosf({a})",
+    "erf": "erff({a})",
+    "pow": "powf({a}, {b})",
+    # an argmax / argmin step: x beats the best so far if larger (smaller)
+    # or a NaN where the best is not, so ties keep the first index
+    "take_max": "{a} > {b} || ({a} != {a} && {b} == {b}) ? 1.f : 0.f",
+    "take_min": "{a} < {b} || ({a} != {a} && {b} == {b}) ? 1.f : 0.f",
+    # float -> int -> float, the cast eager PyTorch takes on the device
+    "toi32": "static_cast<float>(static_cast<int>({a}))",
+    "toi64": "static_cast<float>(static_cast<long long>({a}))",
 }
 _ARITY = {op: sum(f"{{{x}}}" in r for x in "abc")
           for op, r in RULES.items()}

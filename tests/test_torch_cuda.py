@@ -12,9 +12,12 @@ harness's random DAGs) and conv2d. They round every product and sum on
 their own (``_rn`` intrinsics, built with ``-fmad=false``) in the plain
 version's order, and the square root is correctly rounded like the plain
 one's. The lowering cases of ``tests/test_torch_expr.py`` are bitwise
-too, except sums, means, exp, log and tanh, a division by a number
-against the card's eager version and a float32 ``torch.sqrt`` against
-the CPU's (4 ULP at the array's scale; ``core/expr.py`` says why).
+too, except sums, means, the library functions (exp, log, tanh, rsqrt,
+sigmoid, erf, sin, cos, powf), a division by a number against the
+card's eager version and a float32 ``torch.sqrt`` against the CPU's (4
+ULP at the array's scale; ``core/expr.py`` says why). The registered
+pipelines on NaN frames equal their plain version with NaN positions
+equal and every other bit equal.
 swa_decode sums its dot products in another order: rtol 2e-4, atol
 2e-5. A program with an expression stage launches from a library of its
 own, built by nvcc at its first use: the expression tests share one
@@ -37,9 +40,11 @@ from repro_torch.resilience import ResilienceConfig, RetryPolicy
 from repro_torch.resilience.chaos import ChaosMonkey, install_chaos
 from repro_torch.video import VideoEngine, VideoFrame
 from test_torch_expr import (CASES, CPU_SQRT, DIVIDES_BY_A_NUMBER, NAN_FNS,
-                             NAN_SHAPES, TAPS, assert_bounded, case_frames,
-                             case_pipeline, case_plain, conv_pipeline,
-                             two_stage_pipeline)
+                             NAN_FREE, NAN_SHAPES, TAPS, assert_bounded,
+                             case_frames, case_pipeline, case_plain,
+                             conv_pipeline, two_stage_pipeline)
+from test_torch_nan import (FRAME_KINDS, NAN_PIPELINES,
+                            assert_equal_nan_positions, nan_frames)
 
 NAMES = sorted(algorithms.ALGORITHMS)
 VIDEO = sorted(algorithms.VIDEO_ALGORITHMS)
@@ -289,9 +294,48 @@ def test_max_and_min_pass_a_nan_on_the_card(cuda_device, expr_libraries,
     x.reshape(-1)[::31] = np.nan
     got, prog = _launch_case(dag, x, [], 8, 1, cuda_device)
     exp = case_plain(dag, prog, torch.from_numpy(x).to(cuda_device), [])
-    assert 0 < int(exp.isnan().sum()) < exp.numel()
+    if op in NAN_FREE:
+        assert not bool(exp.isnan().any())
+    else:
+        assert 0 < int(exp.isnan().sum()) < exp.numel()
     torch.testing.assert_close(got, exp.cpu(), rtol=0, atol=0,
                                equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", FRAME_KINDS)
+@pytest.mark.parametrize("name", NAN_PIPELINES)
+def test_nan_frames_match_plain_on_the_card(cuda_device, name, kind):
+    """NaN frames through the payload bodies that take a max or a clamp
+    (PTX max.NaN / min.NaN): single frames and batches of 4 at a scalar
+    and a float4 width, R = 1 and 8, depths 1 and 2, and a frame tiled
+    through ``execute_tiled``, equal to the plain version with NaN
+    positions equal and every other bit equal (tests/test_torch_nan.py
+    holds the plain version against the jnp oracle on the same kinds of
+    frame)."""
+    dag = algorithms.ALGORITHMS[name]()
+    for seed, (b, h, w) in enumerate([(1, 37, 53), (4, 37, 53),
+                                      (4, 45, 1920)]):
+        x = torch.from_numpy(nan_frames(name, kind, b, h, w, seed)).to(
+            cuda_device)
+        exp = sp.stencil_pipeline_plain(dag, {"in": x}).cpu().numpy()
+        for r in (1, 8):
+            for depth in (1, 2):
+                prog = sp.build_program(dag, h, w, r, frames=b,
+                                        prefetch_depth=depth,
+                                        poison_prefetch=depth > 1)
+                before = sp.stencil_pipeline.launches
+                got = sp.stencil_pipeline(prog, [x])
+                torch.cuda.synchronize()
+                assert sp.stencil_pipeline.launches == before + 1
+                assert_equal_nan_positions(got.cpu().numpy(), exp)
+    cache = PlanCache(device=cuda_device)
+    x = nan_frames(name, kind, 1, 90, 130, 7)
+    for depth in (1, 2):
+        got = execute_tiled(cache, name, {"in": x[0]}, 40, 48, batch=4,
+                            prefetch_depth=depth)
+        exp = sp.stencil_pipeline_plain(dag, {"in": torch.from_numpy(x)})
+        assert_equal_nan_positions(got.cpu().numpy()[None], exp.numpy())
 
 
 @pytest.mark.cuda
@@ -382,9 +426,9 @@ def test_a_fragment_that_does_not_compile_raises(cuda_device, monkeypatch):
 def test_a_stage_that_does_not_lower_is_refused_on_the_card(cuda_device):
     p = Pipeline("opaque")
     x = p.input("in")
-    y = p.stage("y", [(x, 1, 1)], lambda w: torch.sin(w["in"][..., 0, 0]))
+    y = p.stage("y", [(x, 1, 1)], lambda w: torch.atan(w["in"][..., 0, 0]))
     p.output("out", [(y, 1, 1)])
-    with pytest.raises(ValueError, match="opaque/y: aten op aten.sin"):
+    with pytest.raises(ValueError, match="opaque/y: aten op aten.atan"):
         sp.make_executor(p.build(), 16, 32, device=cuda_device)
 
 
@@ -860,6 +904,46 @@ def test_swa_decode_kernel_matches_plain(cuda_device, shape):
         half, swa.swa_decode_plain(q.bfloat16().float(), k.bfloat16().float(),
                                    v.bfloat16().float(), length, start),
         rtol=swa.RTOL, atol=swa.ATOL)
+
+
+@pytest.mark.cuda
+def test_conv2d_and_swa_decode_on_nan_inputs(cuda_device):
+    """The NaN audit of tests/test_torch_nan_audit.py on the card: conv2d
+    passes a NaN input pixel on as its plain version does (NaN positions
+    equal, every other bit equal); swa_decode gives NaN for the group of
+    a NaN in a valid K row, as its plain version does, and stays finite
+    for a NaN in V at a masked slot, where the plain version and the
+    reference give NaN (ROADMAP.md C.3)."""
+    rng = np.random.RandomState(32)
+    for k in ((3, 3), (5, 5), (9, 9)):
+        img = rng.rand(45, 1920).astype(np.float32)
+        img[7, 9] = img[0, 3] = img[12, 0] = img[15, 1919] = np.nan
+        img = torch.from_numpy(img).to(cuda_device)
+        wts = torch.from_numpy(rng.randn(*k).astype(np.float32)).to(
+            cuda_device)
+        exp = conv2d_stencil.conv2d_plain(img, wts)
+        assert_equal_nan_positions(ops.conv2d(img, wts).cpu().numpy(),
+                                   exp.cpu().numpy())
+    b, hq, hkv, d, s = 3, 8, 2, 32, 48
+    q, kk, v = (torch.from_numpy(rng.randn(*sh).astype(np.float32))
+                .to(cuda_device)
+                for sh in ((b, hq, d), (b, s, hkv, d), (b, s, hkv, d)))
+    length = torch.tensor([s, s // 2 + 3, 9], dtype=torch.int32,
+                          device=cuda_device)
+    start = torch.tensor([0, s - 2, 5], dtype=torch.int32,
+                         device=cuda_device)
+    kk[0, 11, 1, 4] = float("nan")
+    masked = (5 + 9 + 4) % s
+    v[2, masked, 1, 5] = float("nan")
+    got = ops.swa_decode(q, kk, v, length, start).cpu()
+    exp = swa.swa_decode_plain(q, kk, v, length, start).cpu()
+    g = hq // hkv
+    assert got[0, g:2 * g].isnan().all() and exp[0, g:2 * g].isnan().all()
+    assert exp[2, g:2 * g, 5].isnan().all()
+    assert torch.isfinite(got[1:]).all()
+    rest = ~exp.isnan()
+    torch.testing.assert_close(got[rest], exp[rest], rtol=swa.RTOL,
+                               atol=swa.ATOL)
 
 
 @pytest.mark.cuda

@@ -144,7 +144,72 @@ CASES = {
     # a result that is a constant itself: one copy instruction
     "constant_copy": (lambda w: torch.full_like(_one(w), 0.25),
                       {"a": (1, 1, 1)}, False),
+    # rounding to integers, exact everywhere: values in [-4, 4) (a 0.5
+    # pixel gives 0) and exact halves for round's ties to even
+    "rounding": (lambda w: torch.floor(_v8(w)) + 2 * torch.ceil(_v8(w))
+                 + 4 * torch.trunc(_v8(w)) + 8 * torch.round(_v8(w))
+                 + torch.frac(_v8(w)) + 16 * torch.sign(_v8(w))
+                 + torch.round(torch.floor(_v8(w) * 2) / 2) * 32
+                 + torch.sgn(_b(w) - 0.5),
+                 {"a": (1, 1, 1), "b": (1, 1, 1)}, False),
+    "fmod_remainder": (lambda w: torch.fmod(_v8(w), _b(w) + 0.25)
+                       + torch.fmod(_v8(w), 1.5) * 2
+                       + torch.remainder(_v8(w), -(_b(w) + 0.25)) * 4
+                       + (_v8(w) % 1.5) * 8 + torch.remainder(_v8(w), -1.5)
+                       * 16 + (3.0 % (_b(w) + 0.25)) * 32,
+                       {"a": (1, 1, 1), "b": (1, 1, 1)}, False),
+    # float -> int -> float (a truncation) and integers compared or read
+    # as float32
+    "int_casts": (lambda w: _v8(w).to(torch.int32).float()
+                  + 2 * _v8(w).long().float()
+                  + (_v8(w).int() == _b(w).mul(4).int()).float()
+                  + _v8(w).int() * 0.5 + (_b(w) > 0.5).int().float() * 4,
+                  {"a": (1, 1, 1), "b": (1, 1, 1)}, False),
+    # window indices as float32: the first index on a tie (a window of
+    # 0.5 floors ties often), a NaN's index (test_max_and_min_pass_a_nan_on)
+    "argmax_argmin": (lambda w: w["a"].argmax(-1).float()[..., 1]
+                      + 3.0 * w["a"].argmin(-2)[..., 0]
+                      + 9.0 * torch.maximum(w["a"], torch.tensor(0.5))
+                      .flatten(-2).argmax(-1)
+                      + 81.0 * torch.minimum(w["a"], torch.tensor(0.5))
+                      .argmin(-1, keepdim=True)[..., 2, 0]
+                      + (w["a"].max(-1).indices[..., 0] == 2).float() * 243
+                      + w["a"].min(dim=-2).indices.float()[..., 1] * 729,
+                      {"a": (1, 3, 3)}, False),
+    # exponents eager PyTorch multiplies or divides for: exact
+    "pow_exact": (lambda w: _pos(w) ** 2 + _pos(w) ** 3 * 2
+                  + _pos(w) ** -1 * 4 + _pos(w) ** -2 * 8
+                  + _pos(w) ** 0 * 16 + _pos(w) ** 1 * 32
+                  + torch.pow(_pos(w), 3.0), {"b": (1, 1, 1)}, False),
+    # the libraries' functions (4 ULP): rsqrt, sigmoid, erf, powf (an
+    # exponent of 0.5 is eager's sqrt: the CPU's root is not always
+    # correctly rounded)
+    "rsqrt_sigmoid_erf_pow": (lambda w: torch.rsqrt(_pos(w))
+                              + torch.sigmoid(_v8(w)) + torch.erf(_v8(w))
+                              + _pos(w) ** 0.5 + _pos(w) ** -0.5
+                              + _pos(w) ** 1.7 + torch.pow(_pos(w), _one(w))
+                              + 2.0 ** _v8(w),
+                              {"a": (1, 1, 1), "b": (1, 1, 1)}, True),
+    # sin and cos over [-8, 8): the bound's argument range (a power-of-two
+    # scale, so every library sees the same argument)
+    "sin_cos": (lambda w: torch.sin(_one(w) * 16.0 - 8.0)
+                + torch.cos(_b(w) * 16.0 - 8.0),
+                {"a": (1, 1, 1), "b": (1, 1, 1)}, True),
+    # and over [-8192, 8192): the libraries' argument reduction
+    "sin_cos_large": (lambda w: torch.sin(_one(w) * 16384.0 - 8192.0)
+                      + torch.cos(_b(w) * 16384.0 - 8192.0),
+                      {"a": (1, 1, 1), "b": (1, 1, 1)}, True),
 }
+
+
+def _v8(w):
+    """The pixel of window "a" mapped onto [-4, 4)."""
+    return _one(w) * 8.0 - 4.0
+
+
+def _pos(w):
+    """The pixel of window "b" mapped onto [0.25, 1.25)."""
+    return _b(w) + 0.25
 # cases that divide by a number (a Python scalar): eager PyTorch on CUDA
 # multiplies by its float32 reciprocal, the kernel divides (within 1 ULP
 # of the quotient, core/expr.py)
@@ -224,8 +289,9 @@ def run_instructions(ex: expr.StageExpr, wins) -> torch.Tensor:
     """``ex``'s instructions run in torch, elementwise over whole windows,
     one rounding per instruction: a check of the lowering alone (the
     instruction list against the function it came from) that needs no
-    compiler. Its exp, log and tanh are torch's own, so the kernel's case
-    bodies are checked by the kernel tests, not here. ``wins`` maps
+    compiler. Its library functions (exp, log, tanh, rsqrt, sin, cos, erf,
+    pow) are torch's own, so the kernel's case bodies are checked by the
+    kernel tests, not here. ``wins`` maps
     window keys to (..., [st,] sh, sw) float32 tensors in the order of
     ``ex.operands``."""
     w = list(wins.values())
@@ -244,11 +310,20 @@ def run_instructions(ex: expr.StageExpr, wins) -> torch.Tensor:
               "eq": lambda a, b: flag(a == b), "ne": lambda a, b: flag(a != b),
               "and": lambda a, b: flag((a != 0) & (b != 0)),
               "or": lambda a, b: flag((a != 0) | (b != 0))}
+    binary.update({
+        "fmod": torch.fmod, "pow": torch.pow,
+        "take_max": lambda a, b: flag((a > b) | (a.isnan() & ~b.isnan())),
+        "take_min": lambda a, b: flag((a < b) | (a.isnan() & ~b.isnan()))})
     unary = {"copy": lambda a: a, "neg": torch.neg, "abs": torch.abs,
              # float64 gives the correctly rounded root, as __fsqrt_rn
              "sqrt": lambda a: torch.sqrt(a.double()).float(),
              "exp": torch.exp, "log": torch.log, "tanh": torch.tanh,
-             "not": lambda a: flag(a == 0)}
+             "not": lambda a: flag(a == 0), "floor": torch.floor,
+             "ceil": torch.ceil, "trunc": torch.trunc, "round": torch.round,
+             "rsqrt": torch.rsqrt, "sin": torch.sin, "cos": torch.cos,
+             "erf": torch.erf,
+             "toi32": lambda a: a.to(torch.int32).float(),
+             "toi64": lambda a: a.to(torch.int64).float()}
     for word, a, b, c in ex.code.tolist():
         op, dst = expr.XOPS[word & 255], word >> 8
         if op == "load":
@@ -348,7 +423,14 @@ def _all_ops(w):
     exact = torch.where(keep, -(u / (v + 1.0)), torch.abs(u - v)) \
         + torch.maximum(u, v) - torch.minimum(u, v) \
         + torch.sqrt((u + 1.0).to(torch.float64)).to(torch.float32)
-    return exact + torch.exp(u) + torch.log(v + 0.5) + torch.tanh(u - v)
+    x8, pair = u * 8.0 - 4.0, torch.stack([u, v], -1)
+    exact = exact + torch.floor(x8) + torch.ceil(x8) + torch.trunc(x8) \
+        + torch.round(x8) + torch.fmod(x8, v + 0.25) \
+        + pair.argmax(-1) + pair.argmin(-1) * 2.0 \
+        + x8.int().float() + x8.long().float()
+    return exact + torch.exp(u) + torch.log(v + 0.5) + torch.tanh(u - v) \
+        + torch.rsqrt(v + 0.25) + torch.sin(x8) + torch.cos(x8) \
+        + torch.erf(x8) + (v + 0.25) ** 1.7
 
 
 def all_ops_pipeline():
@@ -390,24 +472,41 @@ NAN_FNS = {
     "amax": lambda w: w["a"].amax((-2, -1)),
     "amin": lambda w: w["a"].amin((-2, -1)),
     "compare_where": lambda w: torch.where(_b(w) > 0.5, _b(w), -_b(w)),
+    # the index of the first NaN, as torch.argmax / argmin give it
+    "argmax": lambda w: w["a"].flatten(-2).argmax(-1).float(),
+    "argmin": lambda w: w["a"].argmin(-1).float()[..., 2],
+    # eager PyTorch's rules: sign(NaN) is 0 (jnp.sign gives NaN), x ** 0
+    # is 1, floor and remainder pass it on
+    "sign_pow0": lambda w: torch.sign(_b(w)) + _b(w) ** 0 * 2,
+    "rounding": lambda w: torch.floor(_b(w)) + torch.remainder(_b(w), 0.3),
+    # a NaN cast to an integer: the device's own cast, as eager PyTorch
+    # takes it there (the CPU's gives INT_MIN, CUDA's 0)
+    "int_cast": lambda w: _b(w).int().float() + _b(w).long().float(),
 }
 
 
 NAN_SHAPES = {"a": (1, 3, 3), "b": (1, 1, 1)}
+# the cases whose result is never NaN
+NAN_FREE = {"argmax", "argmin", "sign_pow0", "int_cast"}
 
 
 @pytest.mark.parametrize("op", sorted(NAN_FNS))
 def test_max_and_min_pass_a_nan_on(host_kernel, op):
     """maximum, minimum, clamp, amax and amin give NaN where an operand
-    is NaN, as eager PyTorch does (the payload bodies' fmaxf would drop
-    it); comparisons and where see a NaN as eager PyTorch does."""
+    is NaN, as eager PyTorch does; comparisons and where see a NaN as
+    eager PyTorch does; argmax and argmin give the first NaN's index;
+    sign, pow, floor, remainder and integer casts follow eager PyTorch's
+    rules for a NaN."""
     dag = case_pipeline(f"nan-{op}", NAN_FNS[op], NAN_SHAPES)
     x, _ = case_frames(dag, 2, 13, 53, 0)
     x.reshape(-1)[::31] = np.nan
     prog = sp.build_program(dag, 13, 53, 8, frames=2)
     got = host_kernel(prog, x)
     exp = case_plain(dag, prog, torch.from_numpy(x), []).numpy()
-    assert 0 < np.isnan(exp).sum() < exp.size
+    if op in NAN_FREE:
+        assert not np.isnan(exp).any()
+    else:
+        assert 0 < np.isnan(exp).sum() < exp.size
     np.testing.assert_array_equal(got, exp)
 
 
@@ -494,9 +593,10 @@ def _right_deep(w):
 
 
 _TAPS = np.random.RandomState(2).rand(16, 17).astype(np.float32)
+_LUT = torch.tensor([0.25, 0.5, 0.75])
 REFUSALS = {
-    "unsupported_op": (lambda w: torch.sin(w["in"][..., 0, 0]),
-                       ((1, 1, 1),), "aten.sin"),
+    "unsupported_op": (lambda w: torch.atan(w["in"][..., 0, 0]),
+                       ((1, 1, 1),), "aten.atan"),
     "sum_of_everything": (lambda w: w["in"].sum() + w["in"][..., 0, 0],
                           ((1, 1, 1),), "aten.sum.default"),
     "reduce_a_pixel_axis": (lambda w: w["in"].mean(0)[..., 0, 0],
@@ -513,8 +613,21 @@ REFUSALS = {
                      else -w["in"][..., 0, 0], ((1, 1, 1),), "control flow"),
     "float64": (lambda w: (w["in"][..., 0, 0].double() * 2).float(),
                 ((1, 1, 1),), "float64"),
-    "integer": (lambda w: w["in"][..., 0, 0] + w["in"].argmax(-1)[..., 0],
-                ((1, 1, 3),), "aten.argmax"),
+    # integer arithmetic: an index plus an integer is an int64 tensor
+    "integer": (lambda w: w["in"][..., 0, 0]
+                + (w["in"].argmax(-1)[..., 0] + 1),
+                ((1, 1, 3),), "integer arithmetic"),
+    "integer_conversion": (lambda w: w["in"][..., 0, 0].int().long()
+                           .float(), ((1, 1, 1),),
+                           "between integer types"),
+    "index_over_every_axis": (lambda w: w["in"][..., 0, 0]
+                              + w["in"].argmax().float(), ((1, 1, 3),),
+                              "mixes pixels"),
+    # a lookup table indexed by a tensor, a cumulative op
+    "lookup_table": (lambda w: _LUT[w["in"].argmax(-1)[..., 0]],
+                     ((1, 1, 3),), "aten.index"),
+    "cumulative": (lambda w: w["in"].cumsum(-1)[..., 0, 2], ((1, 1, 3),),
+                   "aten.cumsum"),
     "returns_bool": (lambda w: w["in"][..., 0, 0] > 0.5, ((1, 1, 1),),
                      "non-float32"),
     "returns_a_window": (lambda w: w["in"][..., 0, :], ((1, 1, 3),),

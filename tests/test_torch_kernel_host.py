@@ -5,7 +5,11 @@ few CUDA names. These tests compile the body of
 ``src/repro_torch/kernels/csrc/stencil_pipeline.cu`` with the host C++
 compiler under a small shim: one thread per block (``blockDim`` 1), so
 ``__syncthreads`` is a no-op; the ``_rn`` intrinsics as single float
-operations under ``-ffp-contract=off``; the asynchronous copies as
+operations under ``-ffp-contract=off``; the C library's ``floorf``,
+``sinf``, ``powf``, ... for CUDA's, and ``rsqrtf`` as eager PyTorch
+takes it on the CPU (1 over the root); PTX ``max.NaN`` / ``min.NaN``
+(``max_nan`` / ``min_nan``) as the same rule in C++ (the kernel's own
+``#ifdef __CUDA_ARCH__`` branch); the asynchronous copies as
 deferred ones: each is recorded in the open commit group and lands (a
 copy, or a zero fill) only at the wait that covers its group, as on the
 card, so a read that overtakes its copy, or a wait count that drifts,
@@ -143,6 +147,12 @@ static float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 static float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
 static float __fdiv_rn(float a, float b) { volatile float r = a / b; return r; }
 static float __fsqrt_rn(float a) { return std::sqrt(a); }
+// CUDA's rsqrtf: eager PyTorch on the CPU divides 1 by the root
+static float host_rsqrtf(float a) {
+  volatile float r = 1.f / std::sqrt(a);
+  return r;
+}
+#define rsqrtf host_rsqrtf
 static float __int_as_float(int i) { float f; memcpy(&f, &i, 4); return f; }
 // cp.async: a copy joins the open group (the last one) and lands when a
 // wait covers its group
