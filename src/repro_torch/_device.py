@@ -3,7 +3,10 @@ from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
+
+from repro_torch.obs import trace
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -35,6 +38,35 @@ def synchronize(device: torch.device) -> None:
     """Wait for the device's queued work (a no-op on the CPU)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def host_bytes(arrays, device: torch.device) -> int:
+    """Bytes, at 4 a float32 element, that handing ``arrays`` to
+    ``device`` copies out of host memory: every numpy array, whatever the
+    device (so a CPU engine fed numpy frames counts what a CUDA one
+    does), and a CPU tensor handed to a card. A tensor already on the
+    card counts nothing, nor a CPU tensor that stays on the CPU."""
+    n = 0
+    for a in arrays:
+        if isinstance(a, torch.Tensor):
+            if a.device.type == "cpu" and device.type != "cpu":
+                n += a.numel()
+        else:
+            n += np.size(a)
+    return 4 * n
+
+
+def h2d_span(name: str, arrays, device: torch.device, **attrs):
+    """``trace.span(name, **attrs)`` over a step that hands ``arrays`` to
+    ``device``. While tracing, the span carries ``h2d_bytes``, their
+    :func:`host_bytes`, when that is not 0; ``arrays`` (any iterable, a
+    generator too) is read only then."""
+    sp = trace.span(name, **attrs)
+    if sp is not trace.NULL_SPAN:
+        n = host_bytes(arrays, device)
+        if n:
+            sp.set(h2d_bytes=n)
+    return sp
 
 
 def launch_context(index: int):

@@ -59,7 +59,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from repro_torch._device import synchronize
+from repro_torch._device import h2d_span, synchronize
 from repro_torch.kernels import ref
 from repro_torch.obs import trace
 from repro_torch.resilience import (AdmissionController, FailedFrame,
@@ -290,27 +290,38 @@ class FrameEngine:
         measures execution, not enqueue."""
         th, tw = self.tile_shape
         dev = self.device
+        names = self.cache.dag_for(name).input_stages()
         if tiled:
-            with trace.span("engine.execute", pipeline=name, profile=True):
-                outs = [execute_tiled(self.cache, name, r.frames, th, tw,
+            with h2d_span("engine.assemble",
+                          (r.frames[n] for r in reqs for n in names), dev,
+                          pipeline=name):
+                frames = [{n: torch.as_tensor(r.frames[n],
+                                              dtype=torch.float32,
+                                              device=dev) for n in names}
+                          for r in reqs]
+            with trace.span("engine.execute", pipeline=name):
+                outs = [execute_tiled(self.cache, name, f, th, tw,
                                       batch=self.max_batch,
                                       rows_per_step=rps, tune=tune,
                                       prefetch_depth=self.prefetch_depth)
-                        for r in reqs]
+                        for f in frames]
                 synchronize(dev)
             return outs, self.cache.smem_bytes()
         ex = self.cache.executor_for(name, h, w, batch=self.max_batch,
                                      rows_per_step=rps, tune=tune,
                                      prefetch_depth=self.prefetch_depth)
-        with trace.span("engine.assemble", pipeline=name):
+        # idle slots are zero frames made on the device, not handed over
+        with h2d_span("engine.assemble",
+                      (r.frames[n] for r in reqs for n in names), dev,
+                      pipeline=name):
             inputs = {n: torch.stack(pad_batch(
                 [torch.as_tensor(r.frames[n], dtype=torch.float32,
                                  device=dev) for r in reqs],
                 self.max_batch,
                 lambda: torch.zeros((h, w), dtype=torch.float32,
                                     device=dev)))
-                for n in self.cache.dag_for(name).input_stages()}
-        with trace.span("engine.execute", pipeline=name, profile=True):
+                for n in names}
+        with trace.span("engine.execute", pipeline=name):
             batch_out = ex(inputs)
             synchronize(dev)
         return [batch_out[i] for i in range(len(reqs))], ex.smem_bytes
@@ -325,11 +336,14 @@ class FrameEngine:
         equal the kernel's."""
         dag = self.cache.dag_for(name)
         dev = self.device
-        with trace.span("engine.execute", pipeline=name, reference=True):
+        names = dag.input_stages()
+        with h2d_span("engine.execute",
+                      (r.frames[n] for r in reqs for n in names), dev,
+                      pipeline=name, reference=True):
             outs = [ref.stencil_pipeline_ref(
                 dag, {n: torch.as_tensor(r.frames[n], dtype=torch.float32,
                                          device=dev)
-                      for n in dag.input_stages()}) for r in reqs]
+                      for n in names}) for r in reqs]
             synchronize(dev)
         return outs, 0
 

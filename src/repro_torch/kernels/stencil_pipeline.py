@@ -47,7 +47,7 @@ from typing import Mapping, Sequence
 import numpy as np
 import torch
 
-from repro_torch._device import resolve_device
+from repro_torch._device import h2d_span, resolve_device
 from repro_torch.core.algorithms import (Payload, execute_reference,
                                         run_stages)
 from repro_torch.core.codegen import (PipelinePlan, frame_outputs, tap_name,
@@ -880,10 +880,11 @@ class StencilExecutor:
         return t.reshape(-1, self.h, self.w).contiguous()
 
     def __call__(self, images: Mapping) -> torch.Tensor:
-        with trace.span("executor.call", profile=True,
-                        pipeline=self.dag.name, batch=self.batch,
-                        rows_per_step=self.rows_per_step):
-            feeds = [self._feed(images[n]) for n in self.program.feeds]
+        names = self.program.feeds
+        with h2d_span("executor.call", (images[n] for n in names),
+                      self.device, pipeline=self.dag.name, batch=self.batch,
+                      rows_per_step=self.rows_per_step):
+            feeds = [self._feed(images[n]) for n in names]
             out = stencil_pipeline(self.program, feeds)
             return out if self.batch is not None else out[0]
 
@@ -989,10 +990,10 @@ class VideoExecutor:
 
     def __call__(self, images: Mapping, state: Mapping
                  ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
-        with trace.span("executor.call", profile=True,
-                        pipeline=self.dag.name, chunk=self.chunk,
-                        rows_per_step=self.rows_per_step):
-            prog = self.program
+        prog = self.program
+        with h2d_span("executor.call", (images[n] for n in prog.feeds),
+                      self.device, pipeline=self.dag.name, chunk=self.chunk,
+                      rows_per_step=self.rows_per_step):
             ins = {n: self._feed(images[n]) for n in prog.feeds}
             rings = {p: torch.as_tensor(state[p], dtype=torch.float32,
                                         device=self.device).contiguous()
@@ -1001,14 +1002,15 @@ class VideoExecutor:
                                    [rings[p] for p in prog.states])
             out, frames = res if prog.frame_outs else (res, {})
             new_state = {}
-            for p, d in self.depths.items():
-                # newest first: the launch's frames, last one first, then
-                # the oldest state frames that still fit
-                cur = ins[p] if p in ins else frames[p]
-                n = min(cur.shape[0], d - 1)
-                new_state[p] = torch.cat(
-                    [cur[cur.shape[0] - 1 - i][None] for i in range(n)]
-                    + [rings[p][:d - 1 - n]])
+            with trace.span("executor.roll", pipeline=self.dag.name):
+                for p, d in self.depths.items():
+                    # newest first: the launch's frames, last one first,
+                    # then the oldest state frames that still fit
+                    cur = ins[p] if p in ins else frames[p]
+                    n = min(cur.shape[0], d - 1)
+                    new_state[p] = torch.cat(
+                        [cur[cur.shape[0] - 1 - i][None] for i in range(n)]
+                        + [rings[p][:d - 1 - n]])
             return (out if self.chunk is not None else out[0]), new_state
 
     @property

@@ -2,8 +2,9 @@
 the live telemetry plane.
 
   * :mod:`trace <repro_torch.obs.trace>` — nestable spans into a
-    thread-safe ring buffer; zero-cost when disabled; ``profile=True``
-    spans also enter ``torch.profiler.record_function``.
+    thread-safe ring buffer; one flag check when disabled; while a
+    ``torch.profiler`` records, every span is also a
+    ``record_function`` annotation of the same name.
   * :mod:`metrics <repro_torch.obs.metrics>` — counters, gauges and
     p50/p95/p99 histograms in a named registry with JSON snapshot and
     Prometheus text exposition. Engine and cache metrics are backed by it.

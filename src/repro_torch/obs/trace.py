@@ -6,23 +6,27 @@ a trace makes the *wall-clock* bottleneck explicit — which of a frame's
 milliseconds went to the ILP solve, the autotune search, executor
 tracing/jit, device execution, or queueing. The design mirrors
 sglang-jax's ``debug_tracer``/``trace_function`` idiom (SNIPPETS.md §1):
-a process-global tracer, context-manager/decorator spans, and a hard
-zero-cost guarantee when disabled.
+a process-global tracer, context-manager/decorator spans, and no work
+beyond one flag check when disabled.
 
   * **spans** — ``with trace.span("ilp.solve", pipeline=..., w=...):``
     or ``@trace.traced("compile.pipeline")``. Spans nest: a per-thread
     stack records depth and parent name, so the exported timeline is a
-    flame graph, not a flat list. ``span(..., profile=True)`` additionally
-    enters a ``torch.profiler.record_function`` so engine-level spans line
-    up with the CUDA kernels on PyTorch's profiler timeline when both are
-    captured.
+    flame graph, not a flat list.
+  * **profiler annotations** — while a ``torch.profiler`` records on the
+    span's thread, every span also enters a
+    ``torch.profiler.record_function`` of its own name, so the
+    profiler's timeline names the program's layers beside the device's
+    kernels and copies. The span's clock is read before the annotation
+    is entered and after it exits: an annotation's cost falls inside
+    its own span, never in its parent's self time. Without a profiler
+    no annotation is entered.
   * **ring buffer** — completed spans land in a bounded deque under a
     lock (threads share one tracer; the serving control loops are
     single-threaded but span exit must still be safe from worker
     threads). Oldest events fall off; capacity is an ``enable()`` knob.
-  * **zero-cost disabled** — ``span()`` checks one flag and returns a
-    shared no-op singleton; no allocation, no clock read, no lock. The
-    CI perf gate (< 2% disabled-mode overhead) leans on this.
+  * **disabled** — ``span()`` checks one flag and returns a shared
+    no-op singleton; no allocation, no clock read, no lock.
 
 Events are relative-timestamped (perf_counter_ns since tracer creation);
 ``obs.export`` turns them into Chrome/Perfetto ``trace_event`` JSON.
@@ -35,6 +39,7 @@ import threading
 import time
 from collections import deque
 
+from torch._C._autograd import _profiler_enabled
 from torch.profiler import record_function as _record_function
 
 DEFAULT_CAPACITY = 65536
@@ -72,15 +77,13 @@ NULL_SPAN = _NullSpan()
 class _Span:
     """A live span: context manager yielding itself so callers can attach
     late attributes (``sp.set(candidates=...)``) before exit records it."""
-    __slots__ = ("_tracer", "name", "attrs", "_profile", "_t0", "_depth",
-                 "_parent", "_ann")
+    __slots__ = ("_tracer", "name", "attrs", "_t0", "_depth", "_parent",
+                 "_ann")
 
-    def __init__(self, tracer: "Tracer", name: str, profile: bool,
-                 attrs: dict):
+    def __init__(self, tracer: "Tracer", name: str, attrs: dict):
         self._tracer = tracer
         self.name = name
         self.attrs = attrs
-        self._profile = profile
         self._ann = None
 
     def set(self, **attrs) -> None:
@@ -91,16 +94,16 @@ class _Span:
         self._depth = len(stack)
         self._parent = stack[-1] if stack else None
         stack.append(self.name)
-        if self._profile:
+        self._t0 = time.perf_counter_ns()
+        if _profiler_enabled():
             self._ann = _record_function(self.name)
             self._ann.__enter__()
-        self._t0 = time.perf_counter_ns()
         return self
 
     def __exit__(self, *exc) -> bool:
-        dur = time.perf_counter_ns() - self._t0
         if self._ann is not None:
             self._ann.__exit__(*exc)
+        dur = time.perf_counter_ns() - self._t0
         tracer = self._tracer
         stack = tracer._stack()
         if stack and stack[-1] == self.name:
@@ -145,20 +148,20 @@ class Tracer:
                 self.dropped += 1      # overflow accounting: oldest falls off
             self._events.append(event)
 
-    def span(self, name: str, profile: bool = False, **attrs):
+    def span(self, name: str, **attrs):
         """A nestable span; the no-op singleton when tracing is off."""
         if not self.enabled:
             return NULL_SPAN
-        return _Span(self, name, profile, attrs)
+        return _Span(self, name, attrs)
 
-    def traced(self, name: str | None = None, profile: bool = False, **attrs):
+    def traced(self, name: str | None = None, **attrs):
         """Decorator form: spans every call of the wrapped function."""
         def deco(fn):
             label = name if name is not None else fn.__qualname__
 
             @functools.wraps(fn)
             def wrapper(*a, **kw):
-                with self.span(label, profile=profile, **attrs):
+                with self.span(label, **attrs):
                     return fn(*a, **kw)
             return wrapper
         return deco
@@ -201,14 +204,14 @@ def get_tracer() -> Tracer:
     return _GLOBAL
 
 
-def span(name: str, profile: bool = False, **attrs):
+def span(name: str, **attrs):
     if not _GLOBAL.enabled:        # inlined fast path: one flag, no call
         return NULL_SPAN
-    return _GLOBAL.span(name, profile=profile, **attrs)
+    return _GLOBAL.span(name, **attrs)
 
 
-def traced(name: str | None = None, profile: bool = False, **attrs):
-    return _GLOBAL.traced(name, profile=profile, **attrs)
+def traced(name: str | None = None, **attrs):
+    return _GLOBAL.traced(name, **attrs)
 
 
 def enable(capacity: int | None = None) -> None:

@@ -19,8 +19,8 @@ analytic predictions and the running system:
     run against a baseline within explicit tolerance bands.
 
 Beside them, the kernel tools: :mod:`timing` (CUDA events and device
-time), :mod:`kernel_times`, :mod:`serve_profile`,
-:mod:`standalone_times` and :mod:`geometry_sweep`.
+time), :mod:`kernel_times`, :mod:`standalone_times` and
+:mod:`geometry_sweep`.
 """
 import importlib
 

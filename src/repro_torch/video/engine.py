@@ -61,7 +61,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from repro_torch._device import synchronize
+from repro_torch._device import h2d_span, synchronize
 from repro_torch.core.algorithms import execute_reference_video
 from repro_torch.imaging.metrics import EngineMetrics
 from repro_torch.imaging.plan_cache import PlanCache
@@ -360,13 +360,14 @@ class VideoEngine:
         ex = self.cache.video_executor_for(s.pipeline, s.h, s.w, chunk=n,
                                            rows_per_step=rps, tune=tune,
                                            prefetch_depth=self.prefetch_depth)
-        with trace.span("engine.assemble", pipeline=s.pipeline):
+        with h2d_span("engine.assemble",
+                      (f.frames[k] for f in frames for k in s.inputs),
+                      self.device, pipeline=s.pipeline):
             ins = {name: torch.as_tensor(
                 np.stack([np.asarray(f.frames[name], np.float32)
                           for f in frames]), device=self.device)
                 for name in s.inputs}
-        with trace.span("engine.execute", pipeline=s.pipeline,
-                        profile=True):
+        with trace.span("engine.execute", pipeline=s.pipeline):
             out, new_state = ex(ins, s.state)
             synchronize(self.device)
         return [out[i] for i in range(n)], new_state, ex.smem_bytes
@@ -377,10 +378,13 @@ class VideoEngine:
         ex = self.cache.video_executor_for(s.pipeline, s.h, s.w, chunk=None,
                                            rows_per_step=rps, tune=tune,
                                            prefetch_depth=self.prefetch_depth)
-        with trace.span("engine.execute", pipeline=s.pipeline,
-                        profile=True):
-            out, new_state = ex({n: np.asarray(f.frames[n], np.float32)
-                                 for n in s.inputs}, s.state)
+        with h2d_span("engine.assemble", (f.frames[k] for k in s.inputs),
+                      self.device, pipeline=s.pipeline):
+            ins = {n: torch.as_tensor(np.asarray(f.frames[n], np.float32),
+                                      device=self.device)
+                   for n in s.inputs}
+        with trace.span("engine.execute", pipeline=s.pipeline):
+            out, new_state = ex(ins, s.state)
             synchronize(self.device)
         return [out], new_state, ex.smem_bytes
 
@@ -395,8 +399,11 @@ class VideoEngine:
         """
         dag = self.cache.dag_for(s.pipeline)
         dev = self.device
-        with trace.span("engine.execute", pipeline=s.pipeline,
-                        reference=True):
+        past = s.inputs if dag.is_temporal() else ()
+        with h2d_span("engine.execute", itertools.chain(
+                (f.frames[k] for f in frames for k in s.inputs),
+                (x for k in past for x in s.history[k])), dev,
+                pipeline=s.pipeline, reference=True):
             if not dag.is_temporal():
                 outs = [ref.stencil_pipeline_ref(
                     dag, {k: torch.as_tensor(f.frames[k],

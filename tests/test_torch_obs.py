@@ -100,15 +100,31 @@ def test_disabled_tracer_is_noop():
 
 
 def test_profile_span_records_like_any_other():
-    """``profile=True`` (the port's counterpart of the reference's
-    ``xla=True``) also enters ``torch.profiler.record_function``; the
-    span it records is the same."""
+    """Under a ``torch.profiler`` every span (the port's counterpart of
+    the reference's ``xla=True``, for all spans) is also a
+    ``record_function`` annotation of its name; the span it records is
+    the one recorded without the profiler."""
+    import torch
+
+    def spans(tr):
+        with tr.span("engine.step", engine="frame"):
+            with tr.span("engine.execute", pipeline="p"):
+                with tr.span("executor.call"):
+                    pass
+        return [(e.name, e.attrs, e.depth, e.parent) for e in tr.events()]
+
+    plain = spans(Tracer(enabled=True))
     tr = Tracer(enabled=True)
-    with tr.span("engine.execute", profile=True, pipeline="p"):
-        pass
-    (e,) = tr.events()
-    assert (e.name, e.attrs, e.depth) == ("engine.execute",
-                                         {"pipeline": "p"}, 0)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        profiled = spans(tr)
+    assert profiled == plain == [
+        ("executor.call", {}, 2, "engine.execute"),
+        ("engine.execute", {"pipeline": "p"}, 1, "engine.step"),
+        ("engine.step", {"engine": "frame"}, 0, None)]
+    marks = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.is_user_annotation()]
+    assert sorted(marks) == sorted(name for name, *_ in plain)
 
 
 def test_traced_decorator():
