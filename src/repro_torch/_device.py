@@ -1,7 +1,10 @@
-"""Device resolution for the port's entry points."""
+"""Device resolution for the port's entry points, and the hand-over of
+host frames to the card (:func:`hand_over`)."""
 from __future__ import annotations
 
 import contextlib
+from time import monotonic as _now
+from typing import Mapping, Sequence
 
 import numpy as np
 import torch
@@ -101,3 +104,125 @@ def caller_stream_context():
         with torch.cuda.device(index), torch.cuda.stream(stream):
             yield
     return context
+
+
+def page_locked_pair(device: torch.device, shape: tuple
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """A page-locked host buffer and a buffer on card ``device``, both
+    float32 of ``shape``, from torch's caching allocators: a page-locked
+    block a non-blocking copy read is reused only once that copy is
+    done, so nothing of a call outlives it but the card's buffer."""
+    return (torch.empty(shape, dtype=torch.float32, pin_memory=True),
+            torch.empty(shape, dtype=torch.float32, device=device))
+
+
+def _readable(frame):
+    """``frame``, a numpy view with a negative stride (a flipped frame,
+    which ``torch.as_tensor`` refuses) copied into C order first."""
+    if isinstance(frame, np.ndarray) and any(s < 0 for s in frame.strides):
+        return np.ascontiguousarray(frame)
+    return frame
+
+
+def stage_into(frames: Sequence, host: torch.Tensor,
+               dev: torch.Tensor) -> int:
+    """Copy ``frames`` (each (h, w), numpy or tensor) into the leading
+    slots of ``dev`` (slots, h, w) float32 and zero the rest. A host
+    frame is converted to float32 into its slot of ``host``, a staging
+    buffer of ``dev``'s shape, by ``Tensor.copy_`` on torch's intra-op
+    threads, then copied on to ``dev`` with ``non_blocking=True``, so
+    each slot's copy to a card runs while the next slot is staged; a
+    frame already on a device is copied over directly. Returns the bytes
+    that went through ``host``: 4 a host frame's element, as
+    :func:`host_bytes` counts them.
+
+    The copies are queued on ``dev``'s current stream: ``host`` may be
+    written again once that stream has run them."""
+    if len(frames) > dev.shape[0]:
+        raise ValueError(f"batch of {len(frames)} exceeds "
+                         f"{dev.shape[0]} slots")
+    staged = 0
+    for i, f in enumerate(frames):
+        src = torch.as_tensor(_readable(f))
+        if src.shape != dev.shape[1:]:
+            raise ValueError(f"frame {i} of shape {tuple(src.shape)}, "
+                             f"slots take {tuple(dev.shape[1:])}")
+        if src.device.type != "cpu":
+            dev[i].copy_(src)
+            continue
+        host[i].copy_(src)
+        dev[i].copy_(host[i], non_blocking=True)
+        staged += 4 * src.numel()
+    if len(frames) < dev.shape[0]:
+        dev[len(frames):].zero_()
+    return staged
+
+
+def _stacked(frames: Sequence, slots: int,
+             device: torch.device) -> torch.Tensor:
+    """``frames`` by ``torch.as_tensor`` as one (slots, h, w) float32
+    tensor, idle slots zero; a lone frame in one slot is a view of its
+    tensor, which on the CPU shares a float32 array's memory."""
+    if len(frames) > slots:
+        raise ValueError(f"batch of {len(frames)} exceeds {slots} slots")
+    ts = [torch.as_tensor(_readable(f), dtype=torch.float32, device=device)
+          for f in frames]
+    if len(ts) == slots == 1:
+        return ts[0][None]
+    return torch.stack(ts + [torch.zeros_like(ts[0])] * (slots - len(ts)))
+
+
+# Staging on torch's intra-op threads pays while the host keeps handing
+# frames to a card: on an H100's host, back to back or after 2 ms idle, a
+# 1080p frame took p50 0.57-0.86 ms staged against 1.47-1.88 by
+# torch.as_tensor, a batch of four 1.5-2.6 against 5.5-7.1
+# (tools/staging_gaps.py). After 8.3 ms idle some hosts' threads woke
+# late: a lone frame p95 8.8-16.4 ms staged against 1.8-2.4, and a live
+# camera's frames staged after an idle host ~4 ms a frame against 1.4 by
+# torch.as_tensor. One staging with the threads asleep thus costs what
+# about three with them awake save, so frames are staged only once the
+# host has handed over four times in a row, each hand-over begun within
+# WARM_S of the previous one's end: from the fifth of such a run on.
+WARM_S = 0.002
+RUN = 4
+# _now() at the end of the latest hand-over to a card, by any engine, and
+# how many hand-overs before it followed their predecessor within WARM_S
+_last_hand_over = -float("inf")
+_run = 0
+
+
+def hand_over(frames: Mapping[str, Sequence], slots: int,
+              device: torch.device, **attrs) -> dict[str, torch.Tensor]:
+    """``frames[name]``, the frames of one input (each (h, w), numpy or
+    tensor), as one (slots, h, w) float32 tensor each on ``device``, idle
+    slots zero, under an ``engine.assemble`` span (``attrs`` its
+    attributes) that carries ``h2d_bytes`` and ``pinned_bytes``, the
+    bytes that went through page-locked memory.
+
+    For a card, when this hand-over and the :data:`RUN` before it each
+    began within :data:`WARM_S` of the previous one's end (the host is
+    busy, torch's intra-op threads awake), each input is staged
+    by :func:`stage_into` through a page-locked buffer made for this
+    call; otherwise, and on the CPU, by :func:`_stacked`. Nothing is kept of or keyed by the
+    caller's arrays, and no buffer outlives the call but the returned
+    tensors."""
+    global _last_hand_over, _run
+    card = device.type == "cuda"
+    if card:
+        _run = _run + 1 if _now() - _last_hand_over < WARM_S else 0
+    with h2d_span("engine.assemble",
+                  (f for fs in frames.values() for f in fs), device,
+                  **attrs) as sp:
+        warm = card and _run >= RUN
+        out, pinned = {}, 0
+        for name, fs in frames.items():
+            if not warm:
+                out[name] = _stacked(fs, slots, device)
+                continue
+            host, out[name] = page_locked_pair(
+                device, (slots, *np.shape(fs[0])))
+            pinned += stage_into(fs, host, out[name])
+        sp.set(pinned_bytes=pinned)
+    if card:
+        _last_hand_over = _now()
+    return out

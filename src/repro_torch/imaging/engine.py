@@ -59,7 +59,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from repro_torch._device import h2d_span, synchronize
+from repro_torch._device import h2d_span, hand_over, synchronize
 from repro_torch.kernels import ref
 from repro_torch.obs import trace
 from repro_torch.resilience import (AdmissionController, FailedFrame,
@@ -67,8 +67,7 @@ from repro_torch.resilience import (AdmissionController, FailedFrame,
                                     ResilienceConfig, ShedFrame, overdue_s,
                                     pick_shed_victim, screen_frames,
                                     split_expired)
-from repro_torch.serve.scheduling import BoundedFifo, assemble_batch, \
-    pad_batch
+from repro_torch.serve.scheduling import BoundedFifo, assemble_batch
 
 from .metrics import EngineMetrics
 from .plan_cache import PlanCache
@@ -292,35 +291,24 @@ class FrameEngine:
         dev = self.device
         names = self.cache.dag_for(name).input_stages()
         if tiled:
-            with h2d_span("engine.assemble",
-                          (r.frames[n] for r in reqs for n in names), dev,
-                          pipeline=name):
-                frames = [{n: torch.as_tensor(r.frames[n],
-                                              dtype=torch.float32,
-                                              device=dev) for n in names}
-                          for r in reqs]
+            staged = hand_over({n: [r.frames[n] for r in reqs]
+                                for n in names}, len(reqs), dev,
+                               pipeline=name)
             with trace.span("engine.execute", pipeline=name):
-                outs = [execute_tiled(self.cache, name, f, th, tw,
-                                      batch=self.max_batch,
+                outs = [execute_tiled(self.cache, name,
+                                      {n: staged[n][j] for n in names},
+                                      th, tw, batch=self.max_batch,
                                       rows_per_step=rps, tune=tune,
                                       prefetch_depth=self.prefetch_depth)
-                        for f in frames]
+                        for j in range(len(reqs))]
                 synchronize(dev)
             return outs, self.cache.smem_bytes()
         ex = self.cache.executor_for(name, h, w, batch=self.max_batch,
                                      rows_per_step=rps, tune=tune,
                                      prefetch_depth=self.prefetch_depth)
         # idle slots are zero frames made on the device, not handed over
-        with h2d_span("engine.assemble",
-                      (r.frames[n] for r in reqs for n in names), dev,
-                      pipeline=name):
-            inputs = {n: torch.stack(pad_batch(
-                [torch.as_tensor(r.frames[n], dtype=torch.float32,
-                                 device=dev) for r in reqs],
-                self.max_batch,
-                lambda: torch.zeros((h, w), dtype=torch.float32,
-                                    device=dev)))
-                for n in names}
+        inputs = hand_over({n: [r.frames[n] for r in reqs] for n in names},
+                           self.max_batch, dev, pipeline=name)
         with trace.span("engine.execute", pipeline=name):
             batch_out = ex(inputs)
             synchronize(dev)

@@ -32,7 +32,7 @@ import torch
 from repro_torch.core import algorithms, expr, fuzz
 from repro_torch.core.dsl import Pipeline
 from repro_torch.imaging import FrameEngine, FrameRequest, PlanCache, \
-    execute_tiled
+    execute_tiled, rows_per_step_for_tile
 from repro_torch.kernels import _build, conv2d_stencil, expr_codegen, ops
 from repro_torch.kernels import stencil_pipeline as sp
 from repro_torch.kernels import swa_decode as swa
@@ -507,6 +507,80 @@ def test_video_engine_serves_through_the_kernel(cuda_device):
         {"in": torch.from_numpy(vid).to(cuda_device)})
     got = torch.stack(res[sid])
     assert got.device.type == "cuda" and torch.equal(got, exp)
+
+
+@pytest.fixture(params=["staged", "pageable"])
+def hand_over_path(request, monkeypatch):
+    """Every hand-over to the card by one path: staged (the host busy),
+    or by ``torch.as_tensor`` (the host idle). Yields the page-locked
+    pairs the hand-overs made, held so no later tensor takes their
+    memory."""
+    from repro_torch import _device
+    staged = request.param == "staged"
+    monkeypatch.setattr(_device, "WARM_S", float("inf") if staged else 0.0)
+    monkeypatch.setattr(_device, "_last_hand_over", 0.0)
+    monkeypatch.setattr(_device, "_run", _device.RUN)
+    made, pair = [], _device.page_locked_pair
+    monkeypatch.setattr(_device, "page_locked_pair", lambda device, shape:
+                        made.append(pair(device, shape)) or made[-1])
+    yield made
+    assert bool(made) == staged
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", [(37, 53), (1080, 1920)])
+def test_staged_batches_equal_the_pageable_path_bitwise(cuda_device, h, w,
+                                                        hand_over_path):
+    """Two successive batches handed over (the second partial and in
+    float64) equal the executor on ``torch.as_tensor`` frames stacked
+    with zero slots, and the first batch's outputs hold after the second
+    batch's hand-over."""
+    eng = FrameEngine(max_batch=4, tile_shape=(h, w), device=cuda_device)
+    ex = eng.cache.executor_for(
+        "harris-m", h, w, batch=4,
+        rows_per_step=rows_per_step_for_tile(h, eng.rows_per_step))
+    batches = [list(_frames(20, 4, h, w)),
+               list(_frames(21, 3, h, w).astype(np.float64))]
+    got = []
+    for k, frames in enumerate(batches):
+        for i, f in enumerate(frames):
+            assert eng.submit(FrameRequest(rid=10 * k + i,
+                                           pipeline="harris-m",
+                                           frames={"in": f}))
+        got += [r.output for r in eng.step()]
+    exp = []
+    for frames in batches:
+        ts = [torch.as_tensor(f, dtype=torch.float32, device=cuda_device)
+              for f in frames]
+        ts += [torch.zeros((h, w), device=cuda_device)] * (4 - len(ts))
+        ref = ex({"in": torch.stack(ts)})
+        exp += [ref[i] for i in range(len(frames))]
+    assert len(got) == 7
+    assert all(torch.equal(g, e) for g, e in zip(got, exp))
+
+
+def _storages(tensors) -> set:
+    return {t.untyped_storage().data_ptr() for t in tensors}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hand_over_path", ["staged"], indirect=True)
+def test_no_output_shares_storage_with_a_staging_buffer(cuda_device,
+                                                         hand_over_path):
+    """A frame batch, a lone frame and a tiled one, every one staged: no
+    returned output lies in a buffer a hand-over made, while those
+    buffers are alive."""
+    feng = FrameEngine(max_batch=3, tile_shape=(40, 48), device=cuda_device)
+    res = feng.run([FrameRequest(rid=i, pipeline="unsharp-m",
+                                 frames={"in": f})
+                    for i, f in enumerate(list(_frames(23, 4, 36, 44))
+                                          + [_frames(24, 1, 90, 130)[0]])])
+    # the batch of three, the lone fourth frame and the tiled one
+    assert len(hand_over_path) == 3
+    staging = [t for pair in hand_over_path for t in pair]
+    outs = list(res.values())
+    assert len(outs) == 5
+    assert not _storages(outs) & _storages(staging)
 
 
 @pytest.mark.cuda
