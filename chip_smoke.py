@@ -29,6 +29,21 @@ inputs. Each phase prints one JSON line:
                throughput, and per-pipeline kernel (per call and device
                time) / plain / bound times at B=4, 1080p, R=8, with the
                launch's threads, shared memory and CTAs per SM;
+ 4b. unorm8  — the decode of 8-bit frames (``kernels.unorm8``) on its main
+               path: ``FrameEngine(pixels="unorm8")`` serving 3840x2160
+               uint8 frames of the 7 pipelines in batches of 4, twice
+               over (the first hand-overs of a run by ``torch.as_tensor``,
+               the later ones staged while the host stays busy), traced:
+               the decode's launches counted from zero over that run, one
+               ``engine.unorm8`` span a launch inside ``engine.assemble``,
+               ``h2d_bytes`` a byte a pixel, every served frame against
+               the plain stencil version on the table-decoded frame; the
+               kernel against ``decode_plain`` on all 256 values, on the
+               path's (4, 2160, 3840) batch and on an odd, misaligned
+               shape; kernel (per call and device time) / plain / bound
+               (5 B a pixel over the data sheet's bandwidth) times and
+               those of ``torch.div(raw, 255.0)``, with the byte values
+               whose quotient it rounds otherwise than the table;
   5. video_kernel — the temporal kernel (history taps, frame outputs)
                against its plain version: the 4 video pipelines plus an
                internal temporal producer, R in {1, 8}, four frame shapes,
@@ -377,6 +392,9 @@ LA_MICRO, LA_MB_SEQ, LA_PIPE_TOL = 6, 512, 1e-5
 LA_CLI = ["--arch", "gemma3-1b", "--steps", "3", "--batch", "1", "--seq",
           "4096"]
 LA_EXAMPLE_STEPS = 100
+# unorm8 phase: the 8-bit 4K UHD frame of the spatial7-4k-u8 deployment,
+# a pool of distinct frames, the 7 pipelines' requests served twice over
+U8_H, U8_W, U8_POOL, U8_ROUNDS = 2160, 3840, 8, 2
 # examples phase: the twins of examples/ and tools/ through main(argv) at
 # full width (--full: 1080p frames, 1920-wide plans, gemma3-1b at full
 # config in bf16), in a temporary directory; debug_memory on gemma3-1b x
@@ -3260,6 +3278,102 @@ def k1_entry_resources(per: dict, instance: str) -> dict:
                               for n, p in per.items()}}
 
 
+def unorm8_phase(dev, mem_rate: float) -> dict:
+    """Phase 4b: the unorm8 decode on its main path and alone. Returns
+    the kernels-line entry."""
+    from repro_torch.core import algorithms
+    from repro_torch.imaging import FrameEngine, FrameRequest
+    from repro_torch.kernels import stencil_pipeline as sp
+    from repro_torch.kernels import unorm8
+    from repro_torch.obs import trace
+    names = sorted(algorithms.ALGORITHMS)
+    rng = np.random.default_rng(SEED + 48)
+    pool = rng.integers(0, 256, (U8_POOL, U8_H, U8_W), dtype=np.uint8)
+    eng = FrameEngine(device=dev, max_batch=SERVE_B, rows_per_step=SERVE_R,
+                      tile_shape=(U8_H, U8_W), pixels="unorm8")
+    reqs = [FrameRequest(rid=i, pipeline=names[i % len(names)],
+                         frames={"in": pool[i % U8_POOL]})
+            for i in range(SERVE_B * len(names))]
+    eng.run(reqs)                      # plans, executors, the library
+    torch.cuda.synchronize()
+
+    unorm8.decode.launches = 0
+    trace.clear()
+    trace.enable()
+    try:
+        t0 = time.perf_counter()
+        served = {(k, rid): out for k in range(U8_ROUNDS)
+                  for rid, out in eng.run(reqs).items()}
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        events = trace.events()
+    finally:
+        trace.disable()
+        trace.clear()
+    launches = unorm8.decode.launches
+    asm = [e for e in events if e.name == "engine.assemble"]
+    dec = [e for e in events if e.name == "engine.unorm8"]
+    if launches != len(asm) or len(dec) != launches:
+        fail(f"unorm8: {launches} decode launches for {len(asm)} "
+             f"hand-overs and {len(dec)} engine.unorm8 spans")
+    if any(e.parent != "engine.assemble" for e in dec):
+        fail("unorm8: a decode ran outside engine.assemble")
+    n_frames = U8_ROUNDS * len(reqs)
+    h2d = sum(int(e.attrs.get("h2d_bytes", 0)) for e in asm)
+    if h2d != n_frames * U8_H * U8_W:
+        fail(f"unorm8: h2d_bytes {h2d} for {n_frames} frames")
+    max_ulp = 0.0
+    for (k, rid), out in served.items():
+        r = reqs[rid]
+        if not isinstance(out, torch.Tensor):
+            fail(f"unorm8: request {rid} not served: {out!r}")
+        x = unorm8.decode_plain(torch.from_numpy(r.frames["in"]).to(dev))
+        exp = sp.stencil_pipeline_plain(eng.cache.dag_for(r.pipeline),
+                                        {"in": x})
+        _, ulp = ulp_err(out, exp)
+        if ulp > TOLERANCE_ULP:
+            fail(f"unorm8: served frame {rid} ({r.pipeline}) differs from "
+                 f"plain by {ulp} ULP")
+        max_ulp = max(max_ulp, ulp)
+
+    values = torch.arange(256, dtype=torch.int32, device=dev) \
+        .to(torch.uint8)
+    raw = torch.from_numpy(pool[:SERVE_B]).to(dev)
+    odd = torch.from_numpy(pool[:3, :37, :53].copy()).to(dev)
+    cases = [values, raw, odd, odd.flatten()[1:]]     # the last misaligned
+    for x in cases:
+        if not torch.equal(unorm8.decode(x), unorm8.decode_plain(x)):
+            fail(f"unorm8: the kernel differs from decode_plain on "
+                 f"{tuple(x.shape)}")
+    lib_values = torch.div(values, 255.0)
+    mismatched = int((lib_values != unorm8.decode_plain(values)).sum())
+    out = torch.empty(raw.shape, dtype=torch.float32, device=dev)
+    nbytes = 5 * raw.numel()           # a byte read, four written a pixel
+
+    def kernel():
+        unorm8.decode(raw, out)
+
+    def library():
+        torch.div(raw, 255.0)
+    entry = {"launches": launches, "max_abs_err": 0.0, "max_ulp": max_ulp,
+             "ms": cuda_ms(kernel, iters=200),
+             "device_ms": device_ms(kernel, 50)[0],
+             "plain_ms": cuda_ms(lambda: unorm8.decode_plain(raw), iters=20),
+             "bound_ms": nbytes / mem_rate * 1e3, "bound_by": "bytes",
+             "library_ms": cuda_ms(library, iters=200),
+             "library_device_ms": device_ms(library, 50)[0],
+             "library_values_off": mismatched}
+    emit("unorm8", kernel=unorm8.decode.name, shape=[U8_H, U8_W],
+         frames=n_frames, batch=SERVE_B, pipelines=names,
+         hand_overs=len(asm),
+         staged=sum(1 for e in asm if e.attrs.get("pinned_bytes")),
+         h2d_bytes=h2d, serve_s=serve_s, fps=n_frames / serve_s,
+         checked_frames=len(served), decode_cases=[list(x.shape)
+                                                   for x in cases],
+         bytes=nbytes, **entry)
+    return entry
+
+
 def conv2d_phase(dev, mem_rate: float, flop_rate: float) -> dict:
     """Phase 9: the conv2d kernels (K2). Returns the kernels-line entry."""
     import torch.nn.functional as F
@@ -3625,6 +3739,9 @@ def main() -> None:
          peak_bytes_per_s=mem_rate, peak_flops=flop_rate,
          per_pipeline=per)
 
+    # --------------------------------------------- 4b. 8-bit frames
+    ku8 = unorm8_phase(dev, mem_rate)
+
     # ------------------------------------------- 5-7. the video path
     k1c_err, k1c_ulp = video_kernel_phase(dev)
     k1c = video_serve_phase(dev, mem_rate, flop_rate, sms)
@@ -3747,6 +3864,19 @@ def main() -> None:
                     f"through the payload bodies; video: one "
                     f"chunk-{VIDEO_CHUNK} launch of each of the 4 video "
                     f"pipelines); launches: the user pipelines' main path",
+    }, {
+        "name": "unorm8_decode", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/stencil_pipeline.cu",
+        "replaces": None,
+        "replaces_part": "no TPU kernel: the JAX package takes float frames "
+                         "only; the decode of 8-bit frames on the card",
+        **{key: ku8[key] for key in ("launches", "max_abs_err", "max_ulp",
+                                    "ms", "device_ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms",
+                                    "library_device_ms",
+                                    "library_values_off")},
+        "library": "torch.div(uint8 batch, 255.0)",
+        "timed_on": f"a batch of {SERVE_B} {U8_H}x{U8_W} uint8 frames",
     }, {
         "name": "conv2d", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/conv2d_stencil.cu",

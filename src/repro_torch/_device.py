@@ -43,12 +43,14 @@ def synchronize(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def host_bytes(arrays, device: torch.device) -> int:
-    """Bytes, at 4 a float32 element, that handing ``arrays`` to
-    ``device`` copies out of host memory: every numpy array, whatever the
-    device (so a CPU engine fed numpy frames counts what a CUDA one
-    does), and a CPU tensor handed to a card. A tensor already on the
-    card counts nothing, nor a CPU tensor that stays on the CPU."""
+def host_bytes(arrays, device: torch.device, itemsize: int = 4) -> int:
+    """Bytes that handing ``arrays`` to ``device`` copies out of host
+    memory, at ``itemsize`` an element, the size of what crosses the
+    link (4: float32, which a float frame of any type is converted to
+    first; 1: unorm8 pixels): every numpy array, whatever the device (so
+    a CPU engine fed numpy frames counts what a CUDA one does), and a
+    CPU tensor handed to a card. A tensor already on the card counts
+    nothing, nor a CPU tensor that stays on the CPU."""
     n = 0
     for a in arrays:
         if isinstance(a, torch.Tensor):
@@ -56,17 +58,18 @@ def host_bytes(arrays, device: torch.device) -> int:
                 n += a.numel()
         else:
             n += np.size(a)
-    return 4 * n
+    return itemsize * n
 
 
-def h2d_span(name: str, arrays, device: torch.device, **attrs):
+def h2d_span(name: str, arrays, device: torch.device, itemsize: int = 4,
+             **attrs):
     """``trace.span(name, **attrs)`` over a step that hands ``arrays`` to
     ``device``. While tracing, the span carries ``h2d_bytes``, their
-    :func:`host_bytes`, when that is not 0; ``arrays`` (any iterable, a
-    generator too) is read only then."""
+    :func:`host_bytes` at ``itemsize`` an element, when that is not 0;
+    ``arrays`` (any iterable, a generator too) is read only then."""
     sp = trace.span(name, **attrs)
     if sp is not trace.NULL_SPAN:
-        n = host_bytes(arrays, device)
+        n = host_bytes(arrays, device, itemsize)
         if n:
             sp.set(h2d_bytes=n)
     return sp
@@ -106,14 +109,16 @@ def caller_stream_context():
     return context
 
 
-def page_locked_pair(device: torch.device, shape: tuple
+def page_locked_pair(device: torch.device, shape: tuple,
+                     dtype: torch.dtype = torch.float32
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """A page-locked host buffer and a buffer on card ``device``, both
-    float32 of ``shape``, from torch's caching allocators: a page-locked
-    block a non-blocking copy read is reused only once that copy is
-    done, so nothing of a call outlives it but the card's buffer."""
-    return (torch.empty(shape, dtype=torch.float32, pin_memory=True),
-            torch.empty(shape, dtype=torch.float32, device=device))
+    ``dtype`` of ``shape``, from torch's caching allocators: a
+    page-locked block a non-blocking copy read is reused only once that
+    copy is done, so nothing of a call outlives it but the card's
+    buffer."""
+    return (torch.empty(shape, dtype=dtype, pin_memory=True),
+            torch.empty(shape, dtype=dtype, device=device))
 
 
 def _readable(frame):
@@ -127,14 +132,14 @@ def _readable(frame):
 def stage_into(frames: Sequence, host: torch.Tensor,
                dev: torch.Tensor) -> int:
     """Copy ``frames`` (each (h, w), numpy or tensor) into the leading
-    slots of ``dev`` (slots, h, w) float32 and zero the rest. A host
-    frame is converted to float32 into its slot of ``host``, a staging
-    buffer of ``dev``'s shape, by ``Tensor.copy_`` on torch's intra-op
-    threads, then copied on to ``dev`` with ``non_blocking=True``, so
-    each slot's copy to a card runs while the next slot is staged; a
-    frame already on a device is copied over directly. Returns the bytes
-    that went through ``host``: 4 a host frame's element, as
-    :func:`host_bytes` counts them.
+    slots of ``dev`` (slots, h, w; float32, or uint8 for unorm8 pixels)
+    and zero the rest. A host frame is converted to ``dev``'s type into
+    its slot of ``host``, a staging buffer of ``dev``'s shape and type,
+    by ``Tensor.copy_`` on torch's intra-op threads, then copied on to
+    ``dev`` with ``non_blocking=True``, so each slot's copy to a card
+    runs while the next slot is staged; a frame already on a device is
+    copied over directly. Returns the bytes that went through ``host``,
+    at its itemsize an element, as :func:`host_bytes` counts them.
 
     The copies are queued on ``dev``'s current stream: ``host`` may be
     written again once that stream has run them."""
@@ -152,20 +157,21 @@ def stage_into(frames: Sequence, host: torch.Tensor,
             continue
         host[i].copy_(src)
         dev[i].copy_(host[i], non_blocking=True)
-        staged += 4 * src.numel()
+        staged += host.element_size() * src.numel()
     if len(frames) < dev.shape[0]:
         dev[len(frames):].zero_()
     return staged
 
 
-def _stacked(frames: Sequence, slots: int,
-             device: torch.device) -> torch.Tensor:
-    """``frames`` by ``torch.as_tensor`` as one (slots, h, w) float32
+def _stacked(frames: Sequence, slots: int, device: torch.device,
+             dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``frames`` by ``torch.as_tensor`` as one (slots, h, w) ``dtype``
     tensor, idle slots zero; a lone frame in one slot is a view of its
-    tensor, which on the CPU shares a float32 array's memory."""
+    tensor, which on the CPU shares the memory of an array of
+    ``dtype``."""
     if len(frames) > slots:
         raise ValueError(f"batch of {len(frames)} exceeds {slots} slots")
-    ts = [torch.as_tensor(_readable(f), dtype=torch.float32, device=device)
+    ts = [torch.as_tensor(_readable(f), dtype=dtype, device=device)
           for f in frames]
     if len(ts) == slots == 1:
         return ts[0][None]
@@ -192,12 +198,18 @@ _run = 0
 
 
 def hand_over(frames: Mapping[str, Sequence], slots: int,
-              device: torch.device, **attrs) -> dict[str, torch.Tensor]:
+              device: torch.device, pixels: str = "float32",
+              **attrs) -> dict[str, torch.Tensor]:
     """``frames[name]``, the frames of one input (each (h, w), numpy or
     tensor), as one (slots, h, w) float32 tensor each on ``device``, idle
     slots zero, under an ``engine.assemble`` span (``attrs`` its
     attributes) that carries ``h2d_bytes`` and ``pinned_bytes``, the
     bytes that went through page-locked memory.
+
+    ``pixels`` is the frames' format: ``"float32"``, frames of any float
+    or integer type converted to float32 on the host, or ``"unorm8"``,
+    uint8 frames moved as they are, a byte a pixel, and decoded on
+    ``device`` (:func:`_decode`).
 
     For a card, when this hand-over and the :data:`RUN` before it each
     began within :data:`WARM_S` of the previous one's end (the host is
@@ -207,22 +219,41 @@ def hand_over(frames: Mapping[str, Sequence], slots: int,
     caller's arrays, and no buffer outlives the call but the returned
     tensors."""
     global _last_hand_over, _run
+    unorm8 = pixels == "unorm8"
+    dtype = torch.uint8 if unorm8 else torch.float32
     card = device.type == "cuda"
     if card:
         _run = _run + 1 if _now() - _last_hand_over < WARM_S else 0
     with h2d_span("engine.assemble",
                   (f for fs in frames.values() for f in fs), device,
-                  **attrs) as sp:
+                  1 if unorm8 else 4, **attrs) as sp:
         warm = card and _run >= RUN
         out, pinned = {}, 0
         for name, fs in frames.items():
             if not warm:
-                out[name] = _stacked(fs, slots, device)
-                continue
-            host, out[name] = page_locked_pair(
-                device, (slots, *np.shape(fs[0])))
-            pinned += stage_into(fs, host, out[name])
+                out[name] = _stacked(fs, slots, device, dtype)
+            else:
+                host, out[name] = page_locked_pair(
+                    device, (slots, *np.shape(fs[0])), dtype)
+                pinned += stage_into(fs, host, out[name])
+            if unorm8:
+                out[name] = _decode(out[name], len(fs), attrs)
         sp.set(pinned_bytes=pinned)
     if card:
         _last_hand_over = _now()
+    return out
+
+
+def _decode(raw: torch.Tensor, n: int, attrs: Mapping) -> torch.Tensor:
+    """The first ``n`` slots of ``raw`` (slots, h, w) uint8 decoded
+    (``kernels.unorm8``) into a float32 tensor of its shape on its
+    device, the other slots zero, under an ``engine.unorm8`` span
+    (``attrs``, ``n_frames`` and ``pixels``, the pixels decoded)."""
+    from repro_torch.kernels import unorm8      # the kernels import this
+    out = torch.empty(raw.shape, dtype=torch.float32, device=raw.device)
+    with trace.span("engine.unorm8", n_frames=n, pixels=raw[:n].numel(),
+                    **attrs):
+        unorm8.decode(raw[:n], out[:n])
+    if n < out.shape[0]:
+        out[n:].zero_()
     return out

@@ -23,6 +23,15 @@ PlanCache and the engine's job is purely scheduling:
 memory config (one memoized design-space search per (pipeline, width));
 its results name the rung ``"tuned"`` instead of ``"default"``.
 
+``pixels`` is the format of the frames the engine takes. ``"float32"``
+(the default) takes frames of any float or integer type and serves
+``float32(v)``. ``"unorm8"`` takes (H, W) uint8 frames, 8-bit unsigned
+normalised as decoders and cameras hand them over: the pixel v stands
+for ``v / 255``. They cross to the card at one byte a pixel and are
+decoded there (:mod:`repro_torch.kernels.unorm8`, under an
+``engine.unorm8`` span inside ``engine.assemble``), so every rung serves
+the decoded frame; admission refuses a frame of another type.
+
 **Resilient mode** (``resilience=ResilienceConfig(...)``) threads the
 serving control plane through all three:
 
@@ -60,7 +69,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import h2d_span, hand_over, synchronize
-from repro_torch.kernels import ref
+from repro_torch.kernels import ref, unorm8
 from repro_torch.obs import trace
 from repro_torch.resilience import (AdmissionController, FailedFrame,
                                     FallbackLadder, Priority, RejectedFrame,
@@ -72,6 +81,8 @@ from repro_torch.serve.scheduling import BoundedFifo, assemble_batch
 from .metrics import EngineMetrics
 from .plan_cache import PlanCache
 from .tiling import execute_tiled, rows_per_step_for_tile
+
+PIXELS = ("float32", "unorm8")         # the frame formats an engine takes
 
 
 @dataclasses.dataclass
@@ -108,7 +119,8 @@ class FrameEngine:
                  autotune: bool = False,
                  registry=None,
                  resilience: ResilienceConfig | None = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 pixels: str = "float32"):
         # ``registry``: a shared obs.MetricsRegistry for the serving
         # telemetry plane; default = a private one per engine. A cache
         # constructed here joins the same registry, compiles under the
@@ -126,6 +138,10 @@ class FrameEngine:
         self.prefetch_depth = prefetch_depth
         # opt-in: serve through the cache's autotuned memory config
         self.autotune = autotune
+        if pixels not in PIXELS:
+            raise ValueError(f"pixels must be one of {PIXELS}, got "
+                             f"{pixels!r}")
+        self.pixels = pixels
         self.resilience = resilience
         self._queues: dict[str, BoundedFifo] = {}
         self.metrics = EngineMetrics(registry=registry,
@@ -178,6 +194,10 @@ class FrameEngine:
         if len({tuple(np.shape(f)) for f in req.frames.values()}) != 1:
             raise ValueError(f"request {req.rid}: input frames must share "
                              f"one (H, W) shape")
+        if self.pixels == "unorm8" and not all(
+                unorm8.is_unorm8(f) for f in req.frames.values()):
+            raise ValueError(f"request {req.rid}: a unorm8 engine takes "
+                             f"uint8 frames")
         req.submitted_at = time.perf_counter()
         ok = self._queue_for(req.pipeline).push(req)
         self.metrics.frames_offered += 1
@@ -203,7 +223,9 @@ class FrameEngine:
             return RejectedFrame("temporal_pipeline", pipeline=req.pipeline,
                                  detail="serve it with the VideoEngine",
                                  rid=req.rid)
-        defect = screen_frames(req.frames, set(dag.input_stages()))
+        defect = screen_frames(
+            req.frames, set(dag.input_stages()),
+            expect_dtype=np.uint8 if self.pixels == "unorm8" else None)
         if defect is not None:
             reason, detail = defect
             return RejectedFrame(reason, pipeline=req.pipeline,
@@ -293,7 +315,7 @@ class FrameEngine:
         if tiled:
             staged = hand_over({n: [r.frames[n] for r in reqs]
                                 for n in names}, len(reqs), dev,
-                               pipeline=name)
+                               self.pixels, pipeline=name)
             with trace.span("engine.execute", pipeline=name):
                 outs = [execute_tiled(self.cache, name,
                                       {n: staged[n][j] for n in names},
@@ -308,7 +330,7 @@ class FrameEngine:
                                      prefetch_depth=self.prefetch_depth)
         # idle slots are zero frames made on the device, not handed over
         inputs = hand_over({n: [r.frames[n] for r in reqs] for n in names},
-                           self.max_batch, dev, pipeline=name)
+                           self.max_batch, dev, self.pixels, pipeline=name)
         with trace.span("engine.execute", pipeline=name):
             batch_out = ex(inputs)
             synchronize(dev)
@@ -321,17 +343,30 @@ class FrameEngine:
         it has no plan, no executor, and no cache to fail, so it bounds
         the blast radius of every compiled-path fault at "degraded
         throughput". It is the kernel's plain version, so its pixels
-        equal the kernel's."""
+        equal the kernel's. unorm8 frames are handed over and decoded
+        first, as the compiled rungs' are."""
         dag = self.cache.dag_for(name)
         dev = self.device
         names = dag.input_stages()
-        with h2d_span("engine.execute",
-                      (r.frames[n] for r in reqs for n in names), dev,
-                      pipeline=name, reference=True):
+        if self.pixels == "unorm8":
+            staged = hand_over({n: [r.frames[n] for r in reqs]
+                                for n in names}, len(reqs), dev,
+                               self.pixels, pipeline=name)
+            host = ()
+
+            def feed(j, n):
+                return staged[n][j]
+        else:
+            host = (r.frames[n] for r in reqs for n in names)
+
+            def feed(j, n):
+                return torch.as_tensor(reqs[j].frames[n],
+                                       dtype=torch.float32, device=dev)
+        with h2d_span("engine.execute", host, dev, pipeline=name,
+                      reference=True):
             outs = [ref.stencil_pipeline_ref(
-                dag, {n: torch.as_tensor(r.frames[n], dtype=torch.float32,
-                                         device=dev)
-                      for n in names}) for r in reqs]
+                dag, {n: feed(j, n) for n in names})
+                for j in range(len(reqs))]
             synchronize(dev)
         return outs, 0
 

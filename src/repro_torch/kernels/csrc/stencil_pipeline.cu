@@ -1160,3 +1160,68 @@ extern "C" int stencil_pipeline_attributes(int temporal, int prefetch,
   *local_bytes = static_cast<int>(attr.localSizeBytes);
   return 0;
 }
+
+#ifndef STENCIL_EXPR
+// ------------------------------------------------------------ unorm8
+// The decode of unorm8 frames (kernels/unorm8.py): 8-bit unsigned-
+// normalised pixels, the byte v in 0..255 standing for the float32 v / 255.
+// It replaces no TPU kernel (the JAX package takes float frames only): a
+// host frame in this format crosses the link at one byte a pixel and is
+// decoded here into the float32 batch the stencil kernel reads. It sits in
+// the shared library, which serving loads anyway, so it costs no build of
+// its own; a program's own library (STENCIL_EXPR) leaves it out.
+//
+// Each value is read from a 256-entry table the host computes once
+// (np.float32(v) / np.float32(255), the correctly rounded quotient), held
+// in shared memory: no division on the card decides a bit. What bounds it:
+// one byte read and four written a pixel, so device-memory bytes. Four
+// pixels a thread a step, one uchar4 load and one float4 store, where both
+// pointers allow it (the engines' buffers always do); the pixels after the
+// last whole four, and misaligned pointers, go one at a time. A grid-stride
+// loop over at most a few thousand CTAs loads the table once a CTA.
+namespace {
+
+constexpr int kDecodeThreads = 256;     // one table entry a thread
+
+__global__ void __launch_bounds__(kDecodeThreads)
+unorm8_decode_kernel(const uint8_t* __restrict__ src,
+                     float* __restrict__ dst,
+                     const float* __restrict__ table, long long n, int vec) {
+  __shared__ float lut[256];
+  lut[threadIdx.x] = table[threadIdx.x];
+  __syncthreads();
+  const long long stride =
+      static_cast<long long>(gridDim.x) * kDecodeThreads;
+  const long long first =
+      static_cast<long long>(blockIdx.x) * kDecodeThreads + threadIdx.x;
+  long long done = 0;
+  if (vec) {
+    const long long n4 = n / 4;
+    const uchar4* s4 = reinterpret_cast<const uchar4*>(src);
+    float4* d4 = reinterpret_cast<float4*>(dst);
+    for (long long i = first; i < n4; i += stride) {
+      const uchar4 v = s4[i];
+      d4[i] = make_float4(lut[v.x], lut[v.y], lut[v.z], lut[v.w]);
+    }
+    done = 4 * n4;
+  }
+  for (long long i = done + first; i < n; i += stride) dst[i] = lut[src[i]];
+}
+
+}  // namespace
+
+// Decodes the n bytes at src into the n floats at dst through the 256
+// floats at table (all device pointers), on ``stream``, over ``blocks``
+// CTAs (n > 0, blocks > 0). Returns the cudaError_t of the launch.
+extern "C" int unorm8_decode_launch(const void* src, void* dst,
+                                    const void* table, long long n,
+                                    int blocks, void* stream) {
+  const int vec = ((reinterpret_cast<uintptr_t>(src) & 3)
+                   | (reinterpret_cast<uintptr_t>(dst) & 15)) == 0;
+  unorm8_decode_kernel<<<blocks, kDecodeThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(src), static_cast<float*>(dst),
+      static_cast<const float*>(table), n, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+#endif  // STENCIL_EXPR

@@ -39,17 +39,20 @@ class Priority(enum.IntEnum):
 
 
 def screen_frames(frames: Mapping[str, object], needed: frozenset | set,
-                  expect_shape: tuple[int, int] | None = None
+                  expect_shape: tuple[int, int] | None = None,
+                  expect_dtype: np.dtype | type | None = None
                   ) -> tuple[str, str] | None:
     """Validate a request's input arrays; None = clean, else
     ``(reason, detail)`` naming the first defect found.
 
     Checks, in order: every required input stage present; every array a
-    real numeric 2D array; all inputs sharing one (H, W) shape (equal to
-    ``expect_shape`` when the stream pins one); every pixel finite. The
-    finiteness scan is O(pixels) on the host — the price of quarantining
-    NaN frames at the door instead of letting them silently corrupt a
-    batch (zero idle slots, tile halos) or a video stream's frame rings.
+    real numeric 2D array, of ``expect_dtype`` when the engine takes one
+    type only (a unorm8 engine: uint8); all inputs sharing one (H, W)
+    shape (equal to ``expect_shape`` when the stream pins one); every
+    pixel of a float array finite. The finiteness scan is O(pixels) on
+    the host — the price of quarantining NaN frames at the door instead
+    of letting them silently corrupt a batch (zero idle slots, tile
+    halos) or a video stream's frame rings.
     """
     missing = set(needed) - set(frames)
     if missing:
@@ -61,11 +64,14 @@ def screen_frames(frames: Mapping[str, object], needed: frozenset | set,
         if not (np.issubdtype(arr.dtype, np.floating)
                 or np.issubdtype(arr.dtype, np.integer)):
             return ("bad_dtype", f"input {name!r} has dtype {arr.dtype}")
+        if expect_dtype is not None and arr.dtype != expect_dtype:
+            return ("bad_dtype", f"input {name!r} has dtype {arr.dtype}, "
+                                 f"the engine takes {np.dtype(expect_dtype)}")
         if arr.ndim != 2:
             return ("bad_shape", f"input {name!r} has shape {arr.shape}, "
                                  f"expected 2D (H, W)")
         shapes.add(arr.shape)
-        if not np.isfinite(arr).all():
+        if arr.dtype.kind == "f" and not np.isfinite(arr).all():
             return ("nonfinite", f"input {name!r} contains NaN/Inf")
     if len(shapes) > 1:
         return ("bad_shape", f"inputs disagree on shape: {sorted(shapes)}")

@@ -25,7 +25,11 @@ only fully-warmed output can drop them.
 up to ``chunk`` frames in one executor call (one kernel launch) when the
 pipeline's temporal taps are input-only, and frame-at-a-time for
 pipelines with internal temporal producers. Frames arrive as numpy
-arrays; a call stacks them and copies them to the device once.
+arrays; a call stacks them and copies them to the device once. Their
+pixels are ``float32(v)`` of whatever float or integer type they come
+in: this engine has no ``pixels`` argument, and the 8-bit unorm8 frames
+that ``FrameEngine(pixels="unorm8")`` decodes on the card as ``v / 255``
+are not served here as such.
 
 **Resilient mode** (``resilience=ResilienceConfig(...)``) adds the
 serving control plane: malformed/unknown-stream frames come back as

@@ -36,6 +36,7 @@ from repro_torch.imaging import FrameEngine, FrameRequest, PlanCache, \
 from repro_torch.kernels import _build, conv2d_stencil, expr_codegen, ops
 from repro_torch.kernels import stencil_pipeline as sp
 from repro_torch.kernels import swa_decode as swa
+from repro_torch.kernels import unorm8
 from repro_torch.resilience import ResilienceConfig, RetryPolicy
 from repro_torch.resilience.chaos import ChaosMonkey, install_chaos
 from repro_torch.video import VideoEngine, VideoFrame
@@ -521,8 +522,9 @@ def hand_over_path(request, monkeypatch):
     monkeypatch.setattr(_device, "_last_hand_over", 0.0)
     monkeypatch.setattr(_device, "_run", _device.RUN)
     made, pair = [], _device.page_locked_pair
-    monkeypatch.setattr(_device, "page_locked_pair", lambda device, shape:
-                        made.append(pair(device, shape)) or made[-1])
+    monkeypatch.setattr(_device, "page_locked_pair",
+                        lambda device, shape, *dtype:
+                        made.append(pair(device, shape, *dtype)) or made[-1])
     yield made
     assert bool(made) == staged
 
@@ -581,6 +583,97 @@ def test_no_output_shares_storage_with_a_staging_buffer(cuda_device,
     outs = list(res.values())
     assert len(outs) == 5
     assert not _storages(outs) & _storages(staging)
+
+
+def _u8(seed, n, h, w):
+    return np.random.default_rng(seed).integers(0, 256, (n, h, w),
+                                                dtype=np.uint8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,skew", [((256,), 0), ((4, 2160, 3840), 0),
+                                        ((4, 2161, 3839), 0),
+                                        ((3, 37, 53), 1), ((3, 37, 53), 4)])
+def test_unorm8_decode_kernel_matches_its_twin(cuda_device, shape, skew):
+    """Every byte value, and 4K batches with w % 4 == 0 and != 0, through
+    the kernel bit for bit as the table indexed on the host; ``skew``
+    bytes or floats off the allocation (scalar loads or stores)."""
+    n = int(np.prod(shape))
+    host = (np.arange(n) % 256).astype(np.uint8) if n == 256 \
+        else _u8(n % 1000, 1, 1, n)[0, 0]
+    flat = torch.from_numpy(np.concatenate([np.zeros(skew, np.uint8), host])
+                            ).to(cuda_device)
+    raw = flat[skew:].view(shape)
+    out = torch.full((n + skew,), float("nan"), device=cuda_device)
+    before = unorm8.decode.launches
+    got = unorm8.decode(raw, out[skew:].view(shape))
+    torch.cuda.synchronize()
+    assert unorm8.decode.launches == before + 1
+    want = torch.from_numpy(unorm8.TABLE[host.reshape(shape)])
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got, unorm8.decode_plain(raw))
+    assert out[:skew].isnan().all()
+
+
+@pytest.mark.cuda
+def test_unorm8_4k_batches_equal_the_reference(cuda_device, hand_over_path):
+    """Four 3840x2160 uint8 frames a batch through a unorm8 engine, by
+    either hand-over, each output bit for bit the plain version on the
+    decoded frame; the decode ran on the card, a byte a pixel crossed."""
+    from repro_torch.obs import trace
+    h, w = 2160, 3840
+    eng = FrameEngine(max_batch=4, tile_shape=(h, w), device=cuda_device,
+                      pixels="unorm8")
+    frames = _u8(31, 4, h, w)
+    before = unorm8.decode.launches
+    trace.clear()
+    trace.enable()
+    try:
+        for name in ("canny-m", "xcorr-m"):
+            for i, f in enumerate(frames):
+                assert eng.submit(FrameRequest(rid=i, pipeline=name,
+                                               frames={"in": f}))
+            res = eng.step()
+            assert [r.rid for r in res] == [0, 1, 2, 3]
+            for f, r in zip(frames, res):
+                x = torch.from_numpy(unorm8.TABLE[f]).to(cuda_device)
+                exp = sp.stencil_pipeline_plain(eng.cache.dag_for(name),
+                                                {"in": x})
+                assert torch.equal(r.output, exp), name
+        spans = trace.events()
+    finally:
+        trace.disable()
+        trace.clear()
+    assert unorm8.decode.launches == before + 2
+    asm = [e for e in spans if e.name == "engine.assemble"]
+    assert [e.attrs["h2d_bytes"] for e in asm] == [4 * h * w] * 2
+    dec = [e for e in spans if e.name == "engine.unorm8"]
+    assert [(e.parent, e.attrs["pixels"]) for e in dec] == \
+        [("engine.assemble", 4 * h * w)] * 2
+    assert all(t.dtype == torch.uint8 for pair in hand_over_path
+               for t in pair)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hand_over_path", ["staged"], indirect=True)
+def test_no_unorm8_output_shares_storage_with_a_staging_buffer(
+        cuda_device, hand_over_path):
+    """A unorm8 batch, a lone frame and a tiled one, every one staged: no
+    output lies in a buffer a hand-over made."""
+    feng = FrameEngine(max_batch=3, tile_shape=(40, 48), device=cuda_device,
+                       pixels="unorm8")
+    frames = list(_u8(25, 4, 36, 44)) + [_u8(26, 1, 90, 130)[0]]
+    res = feng.run([FrameRequest(rid=i, pipeline="unsharp-m",
+                                 frames={"in": f})
+                    for i, f in enumerate(frames)])
+    assert len(hand_over_path) == 3
+    staging = [t for pair in hand_over_path for t in pair]
+    outs = [res[i] for i in range(len(frames))]
+    assert not _storages(outs) & _storages(staging)
+    for f, out in zip(frames, outs):
+        x = torch.from_numpy(unorm8.TABLE[f]).to(cuda_device)
+        assert torch.equal(out, sp.stencil_pipeline_plain(
+            feng.cache.dag_for("unsharp-m"), {"in": x}))
 
 
 @pytest.mark.cuda

@@ -34,15 +34,16 @@ def fake_card(monkeypatch):
     made, held by weak references."""
     made = []
 
-    def pair(device, shape):
-        bufs = (torch.full(shape, float("nan")),
-                torch.full(shape, float("nan")))
+    def pair(device, shape, dtype=torch.float32):
+        bufs = (torch.full(shape, float("nan"), dtype=dtype),
+                torch.full(shape, float("nan"), dtype=dtype))
         made.extend(weakref.ref(b) for b in bufs)
         return bufs
     stacked = _device._stacked
     monkeypatch.setattr(_device, "page_locked_pair", pair)
-    monkeypatch.setattr(_device, "_stacked", lambda fs, slots, device:
-                        stacked(fs, slots, torch.device("cpu")))
+    monkeypatch.setattr(_device, "_stacked",
+                        lambda fs, slots, device, dtype=torch.float32:
+                        stacked(fs, slots, torch.device("cpu"), dtype))
     monkeypatch.setattr(_device, "WARM_S", float("inf"))
     monkeypatch.setattr(_device, "_last_hand_over", 0.0)
     monkeypatch.setattr(_device, "_run", _device.RUN)
