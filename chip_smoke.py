@@ -3367,6 +3367,7 @@ def unorm8_phase(dev, mem_rate: float) -> dict:
          frames=n_frames, batch=SERVE_B, pipelines=names,
          hand_overs=len(asm),
          staged=sum(1 for e in asm if e.attrs.get("pinned_bytes")),
+         ahead_bytes=sum(int(e.attrs.get("ahead_bytes", 0)) for e in asm),
          h2d_bytes=h2d, serve_s=serve_s, fps=n_frames / serve_s,
          checked_frames=len(served), decode_cases=[list(x.shape)
                                                    for x in cases],

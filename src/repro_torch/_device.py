@@ -43,6 +43,16 @@ def synchronize(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def stream_synchronize(device: torch.device) -> None:
+    """Wait for the work queued on the calling thread's current stream of
+    ``device`` (a no-op on the CPU), not for other streams': a
+    ``FrameEngine`` step waits for its batch, not for the stager's copies
+    of later frames (on an H100's host a device-wide wait for those
+    lengthened steps past the busy rule's 2 ms on slow hosts)."""
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+
+
 def host_bytes(arrays, device: torch.device, itemsize: int = 4) -> int:
     """Bytes that handing ``arrays`` to ``device`` copies out of host
     memory, at ``itemsize`` an element, the size of what crosses the
@@ -196,15 +206,29 @@ RUN = 4
 _last_hand_over = -float("inf")
 _run = 0
 
+# What claiming a frame staged ahead found (kernels/stage_ahead.py): its
+# copy to the card issued before the claim, issued while the claim waited,
+# or not started with no slot free, so taken back for the hand-over.
+TAKEN, WAITED, AHEAD = 0, 1, 2
+
+
+def staging_pays() -> bool:
+    """Whether a hand-over to a card begun now would be staged: the
+    :data:`RUN` hand-overs before it each began within :data:`WARM_S` of
+    the previous one's end, and the latest ended within :data:`WARM_S`."""
+    return _run >= RUN - 1 and _now() - _last_hand_over < WARM_S
+
 
 def hand_over(frames: Mapping[str, Sequence], slots: int,
               device: torch.device, pixels: str = "float32",
+              ahead: tuple | None = None,
               **attrs) -> dict[str, torch.Tensor]:
     """``frames[name]``, the frames of one input (each (h, w), numpy or
     tensor), as one (slots, h, w) float32 tensor each on ``device``, idle
     slots zero, under an ``engine.assemble`` span (``attrs`` its
-    attributes) that carries ``h2d_bytes`` and ``pinned_bytes``, the
-    bytes that went through page-locked memory.
+    attributes) that carries ``h2d_bytes``, ``pinned_bytes``, the bytes
+    that went through page-locked memory, and ``ahead_bytes``, those of
+    frames whose copy to the card was issued before the hand-over.
 
     ``pixels`` is the frames' format: ``"float32"``, frames of any float
     or integer type converted to float32 on the host, or ``"unorm8"``,
@@ -215,9 +239,16 @@ def hand_over(frames: Mapping[str, Sequence], slots: int,
     began within :data:`WARM_S` of the previous one's end (the host is
     busy, torch's intra-op threads awake), each input is staged
     by :func:`stage_into` through a page-locked buffer made for this
-    call; otherwise, and on the CPU, by :func:`_stacked`. Nothing is kept of or keyed by the
-    caller's arrays, and no buffer outlives the call but the returned
-    tensors."""
+    call; otherwise, and on the CPU, by :func:`_stacked`.
+
+    ``ahead`` is ``(stager, {name: [ticket or None, a frame]})`` for
+    frames a :class:`~repro_torch.kernels.stage_ahead.Stager` took at
+    admission. They are claimed first, in one call: a frame staged is
+    gathered from its slot on the card, one being staged (or not started,
+    with a slot free for it) is waited for, and one with no slot free is
+    taken back and handed over here by the rule above, as is every frame
+    without a ticket. Nothing is kept of or keyed by the caller's arrays,
+    and no buffer outlives the call but the returned tensors."""
     global _last_hand_over, _run
     unorm8 = pixels == "unorm8"
     dtype = torch.uint8 if unorm8 else torch.float32
@@ -228,9 +259,15 @@ def hand_over(frames: Mapping[str, Sequence], slots: int,
                   (f for fs in frames.values() for f in fs), device,
                   1 if unorm8 else 4, **attrs) as sp:
         warm = card and _run >= RUN
-        out, pinned = {}, 0
+        claimed = _claim(ahead, frames, slots, device, dtype) \
+            if ahead else {}
+        out, pinned, early = {}, 0, 0
         for name, fs in frames.items():
-            if not warm:
+            if name in claimed:
+                out[name], states = claimed[name]
+                p, e = _stage_taken(fs, states, out[name], warm)
+                pinned, early = pinned + p, early + e
+            elif not warm:
                 out[name] = _stacked(fs, slots, device, dtype)
             else:
                 host, out[name] = page_locked_pair(
@@ -238,10 +275,58 @@ def hand_over(frames: Mapping[str, Sequence], slots: int,
                 pinned += stage_into(fs, host, out[name])
             if unorm8:
                 out[name] = _decode(out[name], len(fs), attrs)
-        sp.set(pinned_bytes=pinned)
+        sp.set(pinned_bytes=pinned, ahead_bytes=early)
     if card:
         _last_hand_over = _now()
     return out
+
+
+def _claim(ahead: tuple, frames: Mapping[str, Sequence], slots: int,
+           device: torch.device, dtype: torch.dtype
+           ) -> dict[str, tuple[torch.Tensor, list[int]]]:
+    """{name: (its (slots, h, w) buffer on ``device``, what the claim
+    found a frame)} for the inputs with a ticket in ``ahead``; a frame
+    without one is :data:`TAKEN`. The frames staged are in their slots of
+    the buffer once the current stream reaches this point."""
+    stager, tickets = ahead
+    bufs, ids, dsts = {}, [], []
+    for name, ts in tickets.items():
+        if all(t is None for t in ts):
+            continue
+        buf = bufs[name] = torch.empty(
+            (slots, *np.shape(frames[name][0])), dtype=dtype, device=device)
+        for i, t in enumerate(ts):
+            if t is not None:
+                ids.append(t)
+                dsts.append(buf[i])
+    found = iter(stager.claim(ids, dsts) if ids else ())
+    return {name: (buf, [TAKEN if t is None else next(found)
+                         for t in tickets[name]])
+            for name, buf in bufs.items()}
+
+
+def _stage_taken(frames: Sequence, states: Sequence[int],
+                 buf: torch.Tensor, warm: bool) -> tuple[int, int]:
+    """Hand the frames of ``frames`` the claim took back (or that had no
+    ticket; :data:`TAKEN` in ``states``) over into their slots of ``buf``,
+    through page-locked memory when ``warm``, and zero its idle slots.
+    Returns the bytes that went through page-locked memory, the claimed
+    frames' included, and the bytes of the frames :data:`AHEAD`."""
+    nbytes = buf[0].numel() * buf.element_size()
+    taken = [i for i, s in enumerate(states) if s == TAKEN]
+    pinned = nbytes * (len(states) - len(taken))
+    early = nbytes * sum(s == AHEAD for s in states)
+    if taken and warm:
+        host = torch.empty((len(taken), *buf.shape[1:]), dtype=buf.dtype,
+                           pin_memory=True)
+        for j, i in enumerate(taken):
+            pinned += stage_into([frames[i]], host[j:j + 1], buf[i:i + 1])
+    elif taken:
+        for i in taken:
+            buf[i].copy_(torch.as_tensor(_readable(frames[i])))
+    if len(frames) < buf.shape[0]:
+        buf[len(frames):].zero_()
+    return pinned, early
 
 
 def _decode(raw: torch.Tensor, n: int, attrs: Mapping) -> torch.Tensor:

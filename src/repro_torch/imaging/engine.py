@@ -32,6 +32,20 @@ decoded there (:mod:`repro_torch.kernels.unorm8`, under an
 ``engine.unorm8`` span inside ``engine.assemble``), so every rung serves
 the decoded frame; admission refuses a frame of another type.
 
+**Staging ahead.** On a card, while the host is busy (the rule by which
+``_device.hand_over`` stages through page-locked memory), ``submit``
+hands each host frame of an untiled request, float32 or unorm8 as the
+engine takes them and laid out as the stager can read it, to the engine's
+:class:`~repro_torch.kernels.stage_ahead.Stager`. Its threads copy the
+oldest such frames to the card, at most ``2 * max_batch`` at a time,
+while the serving thread runs earlier batches; the batch's hand-over
+gathers them on the card and stages the rest itself. The ring is made at
+the first frame staged ahead, remade for a larger frame once no ticket
+of the old one is out, and freed, its threads joined, with the engine. A
+request's slots are released however it leaves the engine: delivered,
+failed, shed or expired; a retry down the ladder claims them again. A
+frame must not change between its ``submit`` and its result.
+
 **Resilient mode** (``resilience=ResilienceConfig(...)``) threads the
 serving control plane through all three:
 
@@ -68,8 +82,9 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from repro_torch._device import h2d_span, hand_over, synchronize
-from repro_torch.kernels import ref, unorm8
+from repro_torch import _device
+from repro_torch._device import h2d_span, hand_over, stream_synchronize
+from repro_torch.kernels import ref, stage_ahead, unorm8
 from repro_torch.obs import trace
 from repro_torch.resilience import (AdmissionController, FailedFrame,
                                     FallbackLadder, Priority, RejectedFrame,
@@ -154,6 +169,12 @@ class FrameEngine:
         # shed outcomes produced at admission time (overload evictions)
         # or by the expiry sweep; flushed into the next step()'s results
         self._shed_outbox: list[ShedFrame] = []
+        # staging ahead: the ring (made at the first frame staged ahead),
+        # the frame bytes it must take, and per admitted request staged
+        # ahead, id(request): (request, its stager, {input: ticket})
+        self._stager: stage_ahead.Stager | None = None
+        self._ring_bytes = 0
+        self._ahead: dict[int, tuple] = {}
         if resilience is not None:
             self._admission = AdmissionController(
                 resilience.rate, resilience.burst, clock=trace.now)
@@ -203,9 +224,88 @@ class FrameEngine:
         self.metrics.frames_offered += 1
         if ok:
             self.metrics.frames_submitted += 1
+            self._stage_ahead(req)
         else:
             self.metrics.frames_rejected += 1
         return ok
+
+    # --------------------------------------------------------- stage ahead
+    def _stages_ahead(self) -> bool:
+        """Whether admission stages frames ahead now: on a card, while
+        the host is busy, which the stager still holding earlier frames
+        of this engine shows as well as the hand-overs' rule. (By that
+        rule alone, a step that ended late on a slow host turned staging
+        ahead off; the frames then handed over inline shared the copy
+        engine with the stager's and kept steps late, and in one run half
+        the frames admitted went inline, at 0.75 of the fps of an engine
+        that stages inline.)"""
+        return self.device.type == "cuda" and (
+            bool(self._ahead) or _device.staging_pays())
+
+    def _stage_ahead(self, req: FrameRequest) -> None:
+        """Hand ``req``'s frames to the stager when :meth:`_stages_ahead`,
+        the request is untiled and each input frame is a host frame of
+        the engine's pixel type that the stager can read as it lies; else
+        leave them to the hand-over."""
+        first = next(iter(req.frames.values()))
+        if isinstance(first, torch.Tensor) and first.device.type != "cpu" \
+                or id(req) in self._ahead or not self._stages_ahead():
+            return
+        shape = np.shape(first)
+        th, tw = self.tile_shape
+        if len(shape) != 2 or shape[0] > th or shape[1] > tw:
+            return
+        h, w = shape
+        dtype = torch.uint8 if self.pixels == "unorm8" else torch.float32
+        names = self.cache.dag_for(req.pipeline).input_stages()
+        where = [stage_ahead.layout(req.frames[n], dtype) for n in names]
+        if None in where:
+            return
+        stager = self._stager_for(h * w * dtype.itemsize)
+        if stager is not None:
+            self._ahead[id(req)] = (req, stager, {
+                n: stager.put(req.frames[n], wh)
+                for n, wh in zip(names, where)})
+
+    def _stager_for(self, nbytes: int) -> stage_ahead.Stager | None:
+        """The ring, its slots ``nbytes`` or more; None while a smaller
+        ring still has tickets out (it takes no more frames, and is
+        remade once they are released)."""
+        self._ring_bytes = max(self._ring_bytes, nbytes)
+        old = self._stager
+        if old is not None and old.slot_bytes >= self._ring_bytes:
+            return old
+        if old is not None:
+            if any(e[1] is old for e in self._ahead.values()):
+                return None
+            old.close()
+        self._stager = stage_ahead.Stager(self.device, 2 * self.max_batch,
+                                          self._ring_bytes)
+        return self._stager
+
+    def _tickets(self, reqs: list[FrameRequest], names) -> tuple | None:
+        """``hand_over``'s ``ahead`` for ``reqs``: the ring's tickets of
+        their frames (None for a frame without one), or None."""
+        if not self._ahead:
+            return None
+        entries = [self._ahead.get(id(r)) for r in reqs]
+        if not any(entries):
+            return None
+        s = self._stager
+        return s, {n: [e[2][n] if e is not None and e[1] is s else None
+                       for e in entries] for n in names}
+
+    def _release(self, reqs) -> None:
+        """Hand back the slots of ``reqs`` staged ahead."""
+        if not self._ahead:
+            return
+        out: dict = {}
+        for r in reqs:
+            e = self._ahead.pop(id(r), None)
+            if e is not None:
+                out.setdefault(e[1], []).extend(e[2].values())
+        for stager, tickets in out.items():
+            stager.release(tickets)
 
     def _queue_for(self, pipeline: str) -> BoundedFifo:
         q = self._queues.get(pipeline)
@@ -241,6 +341,7 @@ class FrameEngine:
         return rej
 
     def _shed(self, req: FrameRequest, reason: str, now: float) -> None:
+        self._release([req])
         self.metrics.frames_shed += 1
         od = overdue_s(req.deadline, now)
         self._shed_outbox.append(ShedFrame(
@@ -282,6 +383,7 @@ class FrameEngine:
                 "saturated", pipeline=req.pipeline, retryable=True,
                 rid=req.rid))
         self.metrics.frames_submitted += 1
+        self._stage_ahead(req)
         return True
 
     def _sweep_expired(self) -> None:
@@ -307,8 +409,8 @@ class FrameEngine:
                       h: int, w: int, tiled: bool, rps: int, tune: bool
                       ) -> tuple[list, int]:
         """Run one batch through the fused kernel; returns (outputs,
-        smem_bytes). Ends in a device synchronise, so the caller's clock
-        measures execution, not enqueue."""
+        smem_bytes). Ends in a synchronise of the current stream, so the
+        caller's clock measures execution, not enqueue."""
         th, tw = self.tile_shape
         dev = self.device
         names = self.cache.dag_for(name).input_stages()
@@ -323,17 +425,18 @@ class FrameEngine:
                                       rows_per_step=rps, tune=tune,
                                       prefetch_depth=self.prefetch_depth)
                         for j in range(len(reqs))]
-                synchronize(dev)
+                stream_synchronize(dev)
             return outs, self.cache.smem_bytes()
         ex = self.cache.executor_for(name, h, w, batch=self.max_batch,
                                      rows_per_step=rps, tune=tune,
                                      prefetch_depth=self.prefetch_depth)
         # idle slots are zero frames made on the device, not handed over
         inputs = hand_over({n: [r.frames[n] for r in reqs] for n in names},
-                           self.max_batch, dev, self.pixels, pipeline=name)
+                           self.max_batch, dev, self.pixels,
+                           self._tickets(reqs, names), pipeline=name)
         with trace.span("engine.execute", pipeline=name):
             batch_out = ex(inputs)
-            synchronize(dev)
+            stream_synchronize(dev)
         return [batch_out[i] for i in range(len(reqs))], ex.smem_bytes
 
     def _run_reference(self, name: str,
@@ -351,7 +454,8 @@ class FrameEngine:
         if self.pixels == "unorm8":
             staged = hand_over({n: [r.frames[n] for r in reqs]
                                 for n in names}, len(reqs), dev,
-                               self.pixels, pipeline=name)
+                               self.pixels, self._tickets(reqs, names),
+                               pipeline=name)
             host = ()
 
             def feed(j, n):
@@ -367,7 +471,7 @@ class FrameEngine:
             outs = [ref.stencil_pipeline_ref(
                 dag, {n: feed(j, n) for n in names})
                 for j in range(len(reqs))]
-            synchronize(dev)
+            stream_synchronize(dev)
         return outs, 0
 
     @property
@@ -436,6 +540,7 @@ class FrameEngine:
                 # the batch is already popped; losing the exception here
                 # would strand it, raising would strand the *rest* of
                 # the queue — so it travels as FailedFrame results
+                self._release(reqs)
                 err = repr(e)
                 self.metrics.frames_failed += len(reqs)
                 sp.set(failed=len(reqs), error=type(e).__name__)
@@ -445,6 +550,7 @@ class FrameEngine:
                     latency_s=now - r.submitted_at) for r in reqs)
                 return results
             dt = time.perf_counter() - t0
+            self._release(reqs)
             self.metrics.observe_batch(name, len(reqs), self.max_batch, dt,
                                        smem, rows_per_step=rps)
             if rung != self._primary_rung:

@@ -1224,4 +1224,584 @@ extern "C" int unorm8_decode_launch(const void* src, void* dst,
       static_cast<const float*>(table), n, vec);
   return static_cast<int>(cudaGetLastError());
 }
+
+// ------------------------------------------------------------ stage ahead
+// The stager of FrameEngine (kernels/stage_ahead.py). Host code only: it
+// sits here so that serving loads it with the kernels and it costs no
+// build of its own; a program's own library leaves it out.
+//
+// A ticket is one host frame admitted ahead of its batch. A lead thread
+// takes the oldest pending ticket once one of the ring's slots is free and
+// hands the frame to a team of threads, which copy it from the caller's
+// pageable memory into the slot's page-locked half in chunks, while they
+// finish the frame before; the thread that copies its last chunk issues the
+// slot's copy to the card on a stream of the stager's own and records the
+// slot's `copied` event. The serving thread claims a batch's tickets
+// (stager_claim): an issued ticket is gathered from its device slot on the
+// caller's stream once `copied` is reached, and one being staged is waited
+// for. A pending one goes to the front of the queue and is waited for when
+// a slot is free for it, so it waits behind no later frame but the one in
+// hand; else it is taken back, for the caller to stage itself. (Taking
+// back every pending frame had the caller's staging threads and these
+// contend for the cores whenever the lead fell behind.)
+// stager_release hands slots back and records each slot's `released`
+// event on the caller's stream; the slot's next copy to the card waits
+// for it, so a device slot is rewritten only after whatever the caller
+// queued before the release (the gather) has run. A page-locked slot is
+// rewritten only after its last copy to the card is done (`copied`). The
+// calls that wait do so without Python's lock, which ctypes drops, and
+// no thread of the stager ever takes it.
+// ---- stage ahead: begin
+#include <atomic>
+#include <chrono>
+#include <condition_variable>
+#include <deque>
+#include <mutex>
+#include <thread>
+#include <unordered_map>
+#include <vector>
+#if defined(__SSE2__)
+#include <emmintrin.h>
+#endif
+
+namespace stage_ahead {
+
+enum : int { kPending, kStaging, kIssued };   // a ticket's state
+enum : int { kTaken = 0, kWaited = 1, kAhead = 2 };   // what a claim found
+
+// rows of row_bytes each, pitch bytes apart at src, copied packed to dst
+struct Copy {
+  const char* src = nullptr;
+  char* dst = nullptr;
+  long long rows = 0, row_bytes = 0, pitch = 0;
+};
+
+struct Ticket {
+  Copy frame;            // dst unset until the ticket has a slot
+  int state = kPending;
+  int slot = -1;
+};
+
+struct Held {                   // a ticket's frame in the team's hands
+  long long id = 0, bytes = 0;
+  int slot = -1;
+};
+
+// One frame in the team's hands: its packed bytes in chunks of kChunk,
+// which the team's threads claim one at a time (`next`) and count down as
+// they copy them (`left`). `seq` publishes it; a thread that finds no chunk
+// left counts itself out (`out`), and once all have, the job may be reused.
+struct Job {
+  Copy c;
+  Held h;
+  int chunks = 0;
+  std::atomic<int> next{0}, left{0}, out{0};
+  std::atomic<long long> seq{-1};
+};
+constexpr long long kChunk = 256 << 10;
+constexpr int kJobs = 2;         // frames in the team's hands at once
+
+struct Stager {
+  int device = 0, n_slots = 0, team_size = 1;
+  long long slot_bytes = 0;
+  char* pinned = nullptr;           // n_slots page-locked slots
+  char* dev = nullptr;              // n_slots device slots
+  cudaStream_t stream = nullptr;    // the copies to the card
+  std::vector<cudaEvent_t> copied, released;
+  std::vector<char> has_copied, has_released;
+
+  std::mutex mu;                    // guards the fields down to `error`
+  std::condition_variable work;     // the lead: a ticket and a slot, or stop
+  std::condition_variable issued;   // a ticket left kStaging
+  std::unordered_map<long long, Ticket> tickets;
+  std::deque<long long> queue;      // admission order; stale ids skipped
+  std::deque<int> free_slots;
+  long long next_id = 1;
+  bool stop = false;
+  int busy = 0;                     // tickets in kStaging
+  std::atomic<long long> n_issued{0};   // tickets that left kStaging
+  int error = 0;                    // the threads' first CUDA error
+
+  Job jobs[kJobs];                  // frame seq in jobs[seq % kJobs]
+  std::mutex team_mu;               // only for blocking on the jobs
+  std::condition_variable team_go, team_done;
+  std::atomic<bool> team_stop{false};
+
+  std::thread lead;
+  std::vector<std::thread> team;
+};
+
+// n bytes from src to dst: with SSE2, 64 bytes a step by streaming
+// stores, which write around the caches. The slot is read next by the copy
+// to the card, not by a core, and a cached store would first read each
+// line in: on an H100's host, 7 threads streaming took 0.48-0.49 ms a
+// 1080p frame, with memcpy 0.83-1.36.
+void copy_bytes(char* dst, const char* src, long long n) {
+#if defined(__SSE2__)
+  for (; n > 0 && (reinterpret_cast<uintptr_t>(dst) & 15); --n)
+    *dst++ = *src++;
+  for (; n >= 64; n -= 64, src += 64, dst += 64) {
+    const __m128i* a = reinterpret_cast<const __m128i*>(src);
+    __m128i* b = reinterpret_cast<__m128i*>(dst);
+    const __m128i v0 = _mm_loadu_si128(a), v1 = _mm_loadu_si128(a + 1);
+    const __m128i v2 = _mm_loadu_si128(a + 2), v3 = _mm_loadu_si128(a + 3);
+    _mm_stream_si128(b, v0);
+    _mm_stream_si128(b + 1, v1);
+    _mm_stream_si128(b + 2, v2);
+    _mm_stream_si128(b + 3, v3);
+  }
+#endif
+  memcpy(dst, src, n);
+}
+
+// Streaming stores are ordered by a fence before another thread may act on
+// them (here: issue the copy to the card).
+void store_fence() {
+#if defined(__SSE2__)
+  _mm_sfence();
+#endif
+}
+
+// Poll pred() for up to kSpin before the caller blocks: a thread woken from
+// a block starts tens of microseconds late. Kept short: a thread that polls
+// holds a core, and the serving thread, the lead and torch's threads want
+// some; a preempted step can stall past the busy rule's 2 ms.
+constexpr std::chrono::microseconds kSpin(50);
+
+template <class Pred>
+bool spin(Pred pred) {
+  const auto end = std::chrono::steady_clock::now() + kSpin;
+  for (int i = 1;; ++i) {
+    if (pred()) return true;
+#if defined(__SSE2__)
+    _mm_pause();
+#else
+    std::this_thread::yield();
+#endif
+    if ((i & 63) == 0 && std::chrono::steady_clock::now() > end) return false;
+  }
+}
+
+// Bytes [lo, hi) of c's packed bytes.
+void copy_range(const Copy& c, long long lo, long long hi) {
+  while (lo < hi) {
+    const long long r = lo / c.row_bytes, col = lo % c.row_bytes;
+    const long long n = hi - lo < c.row_bytes - col ? hi - lo
+                                                    : c.row_bytes - col;
+    copy_bytes(c.dst + lo, c.src + r * c.pitch + col, n);
+    lo += n;
+  }
+  store_fence();
+}
+
+void notify(Stager* s, std::condition_variable& cv) {
+  { std::lock_guard<std::mutex> lk(s->team_mu); }   // no lost wake-up
+  cv.notify_all();
+}
+
+void issue(Stager* s, const Held& h);
+
+// A thread of the team: every frame in turn, as many of its chunks as it
+// can claim; the thread that copies a frame's last chunk issues its copy to
+// the card.
+void team_main(Stager* s) {
+  cudaSetDevice(s->device);
+  for (long long seq = 0;; ++seq) {
+    Job& j = s->jobs[seq % kJobs];
+    auto ready = [&] {
+      return s->team_stop.load(std::memory_order_acquire)
+             || j.seq.load(std::memory_order_acquire) == seq;
+    };
+    if (!spin(ready)) {
+      std::unique_lock<std::mutex> lk(s->team_mu);
+      s->team_go.wait(lk, ready);
+    }
+    if (j.seq.load(std::memory_order_acquire) != seq) return;   // stopped
+    const long long total = j.c.rows * j.c.row_bytes;
+    for (int k; (k = j.next.fetch_add(1, std::memory_order_relaxed))
+                < j.chunks;) {
+      copy_range(j.c, k * kChunk, std::min(total, (k + 1) * kChunk));
+      if (j.left.fetch_sub(1, std::memory_order_acq_rel) == 1) issue(s, j.h);
+    }
+    if (j.out.fetch_add(1, std::memory_order_acq_rel) + 1 == s->team_size)
+      notify(s, s->team_done);
+  }
+}
+
+// Hand frame `seq` (c, of ticket h) to the team, once it has left frame
+// seq - kJobs. No spin: the lead would take a core from the team.
+void publish(Stager* s, const Copy& c, const Held& h, long long seq) {
+  Job& j = s->jobs[seq % kJobs];
+  {
+    std::unique_lock<std::mutex> lk(s->team_mu);
+    s->team_done.wait(lk, [&] {
+      return j.out.load(std::memory_order_acquire) == s->team_size;
+    });
+  }
+  j.c = c;
+  j.h = h;
+  j.chunks = static_cast<int>((c.rows * c.row_bytes + kChunk - 1) / kChunk);
+  j.next.store(0, std::memory_order_relaxed);
+  j.left.store(j.chunks, std::memory_order_relaxed);
+  j.out.store(0, std::memory_order_relaxed);
+  j.seq.store(seq, std::memory_order_release);
+  notify(s, s->team_go);
+}
+
+// The ticket of h leaves kStaging: kIssued, or dropped on a CUDA error.
+void settle(Stager* s, const Held& h, cudaError_t err) {
+  std::lock_guard<std::mutex> lk(s->mu);
+  --s->busy;
+  s->n_issued.fetch_add(1, std::memory_order_release);
+  if (err == cudaSuccess) {
+    s->tickets[h.id].state = kIssued;
+  } else {
+    if (s->error == 0) s->error = static_cast<int>(err);
+    s->tickets.erase(h.id);
+    s->free_slots.push_back(h.slot);
+  }
+  s->issued.notify_all();
+}
+
+// The ticket of h, copied into its page-locked slot: its copy to the card
+// issued once the slot's last gather has run, and the ticket kIssued; on a
+// CUDA error the ticket is dropped (a claim then finds it taken back).
+void issue(Stager* s, const Held& h) {
+  const int slot = h.slot;
+  cudaError_t err = cudaSuccess;
+  if (s->has_released[slot])
+    err = cudaStreamWaitEvent(s->stream, s->released[slot], 0);
+  if (err == cudaSuccess)
+    err = cudaMemcpyAsync(s->dev + slot * s->slot_bytes,
+                          s->pinned + slot * s->slot_bytes, h.bytes,
+                          cudaMemcpyHostToDevice, s->stream);
+  if (err == cudaSuccess) err = cudaEventRecord(s->copied[slot], s->stream);
+  s->has_copied[slot] = err == cudaSuccess;
+  if (err != cudaSuccess) cudaStreamSynchronize(s->stream);
+  settle(s, h, err);
+}
+
+// The lead: takes the oldest pending ticket whenever a slot is free, waits
+// for the slot's last copy to the card, and hands the frame to the team,
+// which has at most kJobs frames in hand.
+void lead_main(Stager* s) {
+  cudaSetDevice(s->device);
+  for (long long seq = 0;;) {
+    Held h;
+    Copy c;
+    {
+      std::unique_lock<std::mutex> lk(s->mu);
+      for (;;) {
+        while (!s->queue.empty()) {
+          auto it = s->tickets.find(s->queue.front());
+          if (it != s->tickets.end() && it->second.state == kPending) break;
+          s->queue.pop_front();
+        }
+        if (s->stop) return;
+        if (!s->queue.empty() && !s->free_slots.empty()) break;
+        s->work.wait(lk);
+      }
+      h.id = s->queue.front();
+      s->queue.pop_front();
+      h.slot = s->free_slots.front();
+      s->free_slots.pop_front();
+      Ticket& t = s->tickets[h.id];     // kStaging: erased by no one
+      t.state = kStaging;
+      t.slot = h.slot;
+      ++s->busy;
+      c = t.frame;
+      c.dst = s->pinned + h.slot * s->slot_bytes;
+      h.bytes = c.rows * c.row_bytes;
+    }
+    // the page-locked slot is rewritten once its last copy is done
+    const cudaError_t err = s->has_copied[h.slot]
+        ? cudaEventSynchronize(s->copied[h.slot]) : cudaSuccess;
+    if (err != cudaSuccess) {
+      cudaStreamSynchronize(s->stream);
+      settle(s, h, err);
+      continue;
+    }
+    publish(s, c, h, seq++);
+  }
+}
+
+bool staging(Stager* s, long long id) {
+  auto it = s->tickets.find(id);
+  return it != s->tickets.end() && it->second.state == kStaging;
+}
+
+// Wait, s->mu held by lk, until pred(): polling the count of tickets issued
+// first (the serving thread waits on the team, which issues a frame every
+// few hundred microseconds), then blocking on `issued`.
+template <class Pred>
+void wait_issued(Stager* s, std::unique_lock<std::mutex>& lk, Pred pred) {
+  while (!pred()) {
+    const long long seen = s->n_issued.load(std::memory_order_relaxed);
+    lk.unlock();
+    const bool moved = spin([&] {
+      return s->n_issued.load(std::memory_order_acquire) != seen;
+    });
+    lk.lock();
+    if (!moved)
+      s->issued.wait(lk, [&] {
+        return s->n_issued.load(std::memory_order_relaxed) != seen;
+      });
+  }
+}
+
+// Whether ticket `id` is on its way: pending or being staged. A pending
+// one the lead can no longer reach (no slot free, nothing in hand) is
+// taken back here.
+bool coming(Stager* s, long long id) {
+  auto it = s->tickets.find(id);
+  if (it == s->tickets.end()) return false;
+  if (it->second.state == kPending && s->free_slots.empty()
+      && s->busy == 0) {
+    s->tickets.erase(it);
+    return false;
+  }
+  return it->second.state != kIssued;
+}
+
+}  // namespace stage_ahead
+
+// A stager over n_slots slots of slot_bytes at `pinned` (page-locked) and
+// `dev` (on card `device`), its frames copied by a team of `threads`
+// threads, and its lead. Null on failure, *err then the cudaError_t (-1:
+// no thread could be started).
+extern "C" void* stager_create(int device, int n_slots, long long slot_bytes,
+                               void* pinned, void* dev, int threads,
+                               int* err) {
+  using namespace stage_ahead;
+  Stager* s = new Stager;
+  s->device = device;
+  s->n_slots = n_slots;
+  s->slot_bytes = slot_bytes;
+  s->pinned = static_cast<char*>(pinned);
+  s->dev = static_cast<char*>(dev);
+  s->team_size = threads < 1 ? 1 : threads;
+  for (Job& j : s->jobs) j.out.store(s->team_size);
+  s->copied.assign(n_slots, nullptr);
+  s->released.assign(n_slots, nullptr);
+  s->has_copied.assign(n_slots, 0);
+  s->has_released.assign(n_slots, 0);
+  int before = 0;
+  cudaGetDevice(&before);
+  cudaError_t e = cudaSetDevice(device);
+  if (e == cudaSuccess)
+    e = cudaStreamCreateWithFlags(&s->stream, cudaStreamNonBlocking);
+  for (int i = 0; i < n_slots && e == cudaSuccess; ++i) {
+    e = cudaEventCreateWithFlags(&s->copied[i], cudaEventDisableTiming);
+    if (e == cudaSuccess)
+      e = cudaEventCreateWithFlags(&s->released[i], cudaEventDisableTiming);
+    s->free_slots.push_back(i);
+  }
+  cudaSetDevice(before);
+  *err = static_cast<int>(e);
+  if (e == cudaSuccess) {
+    try {
+      for (int k = 0; k < s->team_size; ++k) s->team.emplace_back(team_main, s);
+      s->lead = std::thread(lead_main, s);
+      return s;
+    } catch (...) {
+      *err = -1;
+    }
+  }
+  {
+    std::lock_guard<std::mutex> lk(s->team_mu);
+    s->team_stop.store(true, std::memory_order_release);
+  }
+  s->team_go.notify_all();
+  for (auto& th : s->team) th.join();
+  for (int i = 0; i < n_slots; ++i) {
+    if (s->copied[i]) cudaEventDestroy(s->copied[i]);
+    if (s->released[i]) cudaEventDestroy(s->released[i]);
+  }
+  if (s->stream) cudaStreamDestroy(s->stream);
+  delete s;
+  return nullptr;
+}
+
+// Stops and joins every thread of the stager once the frame in hand is
+// issued, waits for its copies to the card, and frees it. Its slots'
+// memory is the caller's.
+extern "C" void stager_destroy(void* handle) {
+  using namespace stage_ahead;
+  Stager* s = static_cast<Stager*>(handle);
+  {
+    std::lock_guard<std::mutex> lk(s->mu);
+    s->stop = true;
+  }
+  s->work.notify_all();
+  s->lead.join();
+  {
+    std::lock_guard<std::mutex> lk(s->team_mu);
+    s->team_stop.store(true, std::memory_order_release);
+  }
+  s->team_go.notify_all();
+  for (auto& th : s->team) th.join();
+  int before = 0;
+  cudaGetDevice(&before);
+  cudaSetDevice(s->device);
+  cudaStreamSynchronize(s->stream);
+  for (int i = 0; i < s->n_slots; ++i) {
+    cudaEventDestroy(s->copied[i]);
+    cudaEventDestroy(s->released[i]);
+  }
+  cudaStreamDestroy(s->stream);
+  cudaSetDevice(before);
+  delete s;
+}
+
+// A ticket for the frame of `rows` rows of `row_bytes` bytes, `pitch`
+// bytes apart at `src` (rows * row_bytes <= the slots' bytes): its id,
+// > 0. The caller keeps the frame's memory alive and unchanged until the
+// ticket is released.
+extern "C" long long stager_put(void* handle, const void* src,
+                                long long rows, long long row_bytes,
+                                long long pitch) {
+  using namespace stage_ahead;
+  Stager* s = static_cast<Stager*>(handle);
+  long long id;
+  {
+    std::lock_guard<std::mutex> lk(s->mu);
+    id = s->next_id++;
+    Ticket& t = s->tickets[id];
+    t.frame.src = static_cast<const char*>(src);
+    t.frame.rows = rows;
+    t.frame.row_bytes = row_bytes;
+    t.frame.pitch = pitch;
+    s->queue.push_back(id);
+  }
+  s->work.notify_one();
+  return id;
+}
+
+// Claims tickets ids[0..n): out[i] is kAhead (issued before this call),
+// kWaited (issued during it: it was being staged, or pending with a slot
+// free for it, which put it at the front of the queue) or kTaken (pending
+// with no slot free, taken back, or unknown: the caller stages that
+// frame). A claimed frame is copied from its
+// device slot to dsts[i] (a device pointer) on `stream`, after its copy to
+// the card; copies of neighbouring slots to neighbouring places go as
+// one. A ticket may be claimed again (a retry) until it is released.
+// Returns the first cudaError_t of those calls.
+extern "C" int stager_claim(void* handle, int n, const long long* ids,
+                            void* const* dsts, void* stream, int* out) {
+  using namespace stage_ahead;
+  Stager* s = static_cast<Stager*>(handle);
+  std::vector<int> slot(n, -1);
+  std::vector<long long> bytes(n, 0);
+  {
+    std::unique_lock<std::mutex> lk(s->mu);
+    size_t free = s->free_slots.size();
+    std::vector<long long> first;
+    for (int i = 0; i < n; ++i) {
+      auto it = s->tickets.find(ids[i]);
+      if (it == s->tickets.end()) {
+        out[i] = kTaken;
+      } else if (it->second.state != kPending) {
+        out[i] = it->second.state == kIssued ? kAhead : kWaited;
+      } else if (free > 0) {
+        --free;
+        first.push_back(ids[i]);
+        out[i] = kWaited;
+      } else {
+        s->tickets.erase(it);
+        out[i] = kTaken;
+      }
+    }
+    if (!first.empty()) {       // their old places in the queue go stale
+      s->queue.insert(s->queue.begin(), first.begin(), first.end());
+      s->work.notify_one();
+    }
+    wait_issued(s, lk, [&] {
+      for (int i = 0; i < n; ++i)
+        if (out[i] == kWaited && coming(s, ids[i])) return false;
+      return true;
+    });
+    for (int i = 0; i < n; ++i) {
+      if (out[i] == kTaken) continue;
+      auto it = s->tickets.find(ids[i]);
+      if (it == s->tickets.end()) {      // its staging failed
+        out[i] = kTaken;
+        continue;
+      }
+      slot[i] = it->second.slot;
+      bytes[i] = it->second.frame.rows * it->second.frame.row_bytes;
+    }
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaSuccess;
+  for (int i = 0; i < n && err == cudaSuccess; ++i)
+    if (slot[i] >= 0) err = cudaStreamWaitEvent(st, s->copied[slot[i]], 0);
+  for (int i = 0; i < n && err == cudaSuccess;) {
+    if (slot[i] < 0) {
+      ++i;
+      continue;
+    }
+    int j = i;
+    long long run = bytes[i];
+    while (j + 1 < n && slot[j + 1] == slot[j] + 1
+           && bytes[j] == s->slot_bytes
+           && static_cast<char*>(dsts[j + 1])
+                  == static_cast<char*>(dsts[j]) + bytes[j]) {
+      ++j;
+      run += bytes[j];
+    }
+    err = cudaMemcpyAsync(dsts[i], s->dev + slot[i] * s->slot_bytes, run,
+                          cudaMemcpyDeviceToDevice, st);
+    i = j + 1;
+  }
+  return static_cast<int>(err);
+}
+
+// Releases tickets ids[0..n): a pending one is dropped, one being staged
+// is waited for, and an issued one's slot is handed back once the work
+// queued on `stream` so far has run. Unknown ids are skipped. Returns the
+// first cudaError_t.
+extern "C" int stager_release(void* handle, int n, const long long* ids,
+                              void* stream) {
+  using namespace stage_ahead;
+  Stager* s = static_cast<Stager*>(handle);
+  cudaError_t err = cudaSuccess;
+  {
+    std::unique_lock<std::mutex> lk(s->mu);
+    for (int i = 0; i < n; ++i) {
+      wait_issued(s, lk, [&] { return !staging(s, ids[i]); });
+      auto it = s->tickets.find(ids[i]);
+      if (it == s->tickets.end()) continue;
+      const int slot = it->second.slot;
+      if (it->second.state == kIssued) {
+        const cudaError_t e = cudaEventRecord(
+            s->released[slot], static_cast<cudaStream_t>(stream));
+        if (e == cudaSuccess) {
+          s->has_released[slot] = 1;
+        } else {                 // order by the host instead
+          if (err == cudaSuccess) err = e;
+          cudaStreamSynchronize(static_cast<cudaStream_t>(stream));
+          s->has_released[slot] = 0;
+        }
+        s->free_slots.push_back(slot);
+      }
+      s->tickets.erase(it);
+    }
+  }
+  s->work.notify_one();
+  return static_cast<int>(err);
+}
+
+// Tickets waiting for a slot, and slots held (being staged, issued or
+// claimed), in *pending and *held; returns the threads' first CUDA error.
+extern "C" int stager_counts(void* handle, int* pending, int* held) {
+  using namespace stage_ahead;
+  Stager* s = static_cast<Stager*>(handle);
+  std::lock_guard<std::mutex> lk(s->mu);
+  int p = 0;
+  for (const auto& kv : s->tickets) p += kv.second.state == kPending;
+  *pending = p;
+  *held = s->n_slots - static_cast<int>(s->free_slots.size());
+  return s->error;
+}
+// ---- stage ahead: end
 #endif  // STENCIL_EXPR

@@ -24,6 +24,7 @@ own, built by nvcc at its first use: the expression tests share one
 parallel build wave (``expr_libraries``).
 """
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -36,7 +37,7 @@ from repro_torch.imaging import FrameEngine, FrameRequest, PlanCache, \
 from repro_torch.kernels import _build, conv2d_stencil, expr_codegen, ops
 from repro_torch.kernels import stencil_pipeline as sp
 from repro_torch.kernels import swa_decode as swa
-from repro_torch.kernels import unorm8
+from repro_torch.kernels import stage_ahead, unorm8
 from repro_torch.resilience import ResilienceConfig, RetryPolicy
 from repro_torch.resilience.chaos import ChaosMonkey, install_chaos
 from repro_torch.video import VideoEngine, VideoFrame
@@ -513,10 +514,12 @@ def test_video_engine_serves_through_the_kernel(cuda_device):
 @pytest.fixture(params=["staged", "pageable"])
 def hand_over_path(request, monkeypatch):
     """Every hand-over to the card by one path: staged (the host busy),
-    or by ``torch.as_tensor`` (the host idle). Yields the page-locked
-    pairs the hand-overs made, held so no later tensor takes their
-    memory."""
+    or by ``torch.as_tensor`` (the host idle), with no frame staged
+    ahead at admission (the tests after these take that path). Yields the
+    page-locked pairs the hand-overs made, held so no later tensor takes
+    their memory."""
     from repro_torch import _device
+    monkeypatch.setattr(FrameEngine, "_stages_ahead", lambda self: False)
     staged = request.param == "staged"
     monkeypatch.setattr(_device, "WARM_S", float("inf") if staged else 0.0)
     monkeypatch.setattr(_device, "_last_hand_over", 0.0)
@@ -674,6 +677,188 @@ def test_no_unorm8_output_shares_storage_with_a_staging_buffer(
         x = torch.from_numpy(unorm8.TABLE[f]).to(cuda_device)
         assert torch.equal(out, sp.stencil_pipeline_plain(
             feng.cache.dag_for("unsharp-m"), {"in": x}))
+
+
+@pytest.fixture
+def busy_host(monkeypatch):
+    """Every hand-over staged and every admission staging ahead, as
+    while the host is busy."""
+    from repro_torch import _device
+    monkeypatch.setattr(_device, "WARM_S", float("inf"))
+    monkeypatch.setattr(_device, "_last_hand_over", 0.0)
+    monkeypatch.setattr(_device, "_run", _device.RUN)
+
+
+def _settled(stager, held):
+    """Wait until ``stager`` has no ticket waiting and ``held`` slots
+    held, then for its team to finish the frames in its hands (at most
+    two, each well under a millisecond): every frame admitted is issued."""
+    t0 = time.perf_counter()
+    while stager.counts() != (0, held):
+        assert time.perf_counter() - t0 < 10, stager.counts()
+        time.sleep(0.001)
+    time.sleep(0.05)
+
+
+def _inline(pixels, h, w, name, batches):
+    """Outputs of an engine that stages nothing ahead, batch by batch."""
+    eng = FrameEngine(max_batch=4, tile_shape=(h, w), device="cuda",
+                      pixels=pixels)
+    eng._stages_ahead = lambda: False
+    out = []
+    for k, frames in enumerate(batches):
+        for i, f in enumerate(frames):
+            assert eng.submit(FrameRequest(rid=10 * k + i, pipeline=name,
+                                           frames={"in": f}))
+        out += [r.output for r in eng.step()]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pixels,h,w", [("float32", 1080, 1920),
+                                        ("unorm8", 2160, 3840)])
+def test_frames_staged_ahead_equal_the_inline_path(cuda_device, busy_host,
+                                                   pixels, h, w):
+    """A full and a partial batch, their frames staged by the stager
+    before the hand-over (``pinned_bytes`` and ``ahead_bytes`` both the
+    span's ``h2d_bytes``), bit for bit the outputs of an engine that
+    stages inline; a unorm8 batch is decoded once, inside
+    ``engine.assemble``."""
+    from repro_torch.obs import trace
+    make = _frames if pixels == "float32" else _u8
+    batches = [list(make(40, 4, h, w)), list(make(41, 3, h, w))]
+    eng = FrameEngine(max_batch=4, tile_shape=(h, w), device=cuda_device,
+                      pixels=pixels)
+    before = unorm8.decode.launches
+    got = []
+    trace.clear()
+    trace.enable()
+    try:
+        for k, frames in enumerate(batches):
+            for i, f in enumerate(frames):
+                assert eng.submit(FrameRequest(rid=10 * k + i,
+                                               pipeline="canny-m",
+                                               frames={"in": f}))
+            assert isinstance(eng._stager, stage_ahead.Stager)
+            _settled(eng._stager, len(frames))
+            got += [r.output for r in eng.step()]
+        spans = trace.events()
+    finally:
+        trace.disable()
+        trace.clear()
+    launches = unorm8.decode.launches - before
+    want = _inline(pixels, h, w, "canny-m", batches)
+    assert len(got) == 7 and all(torch.equal(g, e)
+                                 for g, e in zip(got, want))
+    asm = [e for e in spans if e.name == "engine.assemble"]
+    item = 4 if pixels == "float32" else 1
+    assert [(e.attrs["h2d_bytes"], e.attrs["pinned_bytes"],
+             e.attrs["ahead_bytes"]) for e in asm] == \
+        [(n * h * w * item,) * 3 for n in (4, 3)]
+    if pixels == "unorm8":
+        dec = [e for e in spans if e.name == "engine.unorm8"]
+        assert [e.parent for e in dec] == ["engine.assemble"] * 2
+        assert launches == 2
+    assert eng._stager.counts() == (0, 0)
+
+
+def _stress(stager, frames, batch, cycles):
+    """``frames`` through ``stager`` in batches of ``batch``: each batch
+    claimed behind a sleep on the current stream, then released, with no
+    host synchronise until the end. Returns the outputs (a frame taken
+    back copied in as the hand-over would) and the claims' results."""
+    h, w = frames[0].shape
+    outs = torch.full((len(frames), h, w), float("nan"), device="cuda")
+    tickets = [stager.put(f, stage_ahead.layout(f, torch.float32))
+               for f in frames]
+    found = []
+    for b in range(0, len(frames), batch):
+        ids = tickets[b:b + batch]
+        torch.cuda._sleep(cycles)
+        got = stager.claim(ids, [outs[b + i] for i in range(len(ids))])
+        for i, st in enumerate(got):
+            if st == stage_ahead.TAKEN:
+                outs[b + i].copy_(torch.from_numpy(frames[b + i]))
+        found += got
+        stager.release(ids)
+    torch.cuda.synchronize()
+    return outs, found
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots,batch,n,h,w", [(2, 1, 40, 1080, 1920),
+                                               (8, 4, 200, 540, 960)],
+                         ids=["pinned-slot", "device-slot"])
+def test_a_slot_is_rewritten_only_after_its_copies(cuda_device, slots,
+                                                   batch, n, h, w):
+    """Each gather queued behind a ~1 ms sleep, so a slot's copy to the
+    card and its gather run late: a page-locked slot rewritten before its
+    copy to the card (a ring of 2, lone frames), or a device slot before
+    its gather (a ring of 8, batches of 4, 200 frames), would hand a
+    later frame's pixels to an earlier one."""
+    rng = np.random.default_rng(n)
+    frames = [rng.random((h, w), dtype=np.float32) for _ in range(n)]
+    st = stage_ahead.Stager(cuda_device, slots, 4 * h * w)
+    outs, found = _stress(st, frames, batch, int(2e6))
+    assert found.count(stage_ahead.TAKEN) < n
+    for i, f in enumerate(frames):
+        assert torch.equal(outs[i].cpu(), torch.from_numpy(f)), i
+    assert st.counts() == (0, 0)
+    st.close()
+
+
+@pytest.mark.cuda
+def test_two_hundred_frames_through_a_ring_of_eight(cuda_device, busy_host):
+    """200 frames, 50 batches of 4, through the engine's ring of 8, every
+    output equal to the executor on the frames stacked by
+    ``torch.as_tensor``."""
+    h, w = 270, 480
+    frames = _frames(42, 200, h, w)
+    eng = FrameEngine(max_batch=4, tile_shape=(h, w), device=cuda_device)
+    res = eng.run([FrameRequest(rid=i, pipeline="harris-m",
+                                frames={"in": frames[i]})
+                   for i in range(200)])
+    assert eng._stager is not None and eng._stager.slots == 8
+    ex = eng.cache.executor_for(
+        "harris-m", h, w, batch=4,
+        rows_per_step=rows_per_step_for_tile(h, eng.rows_per_step))
+    for b in range(50):
+        ref = ex({"in": torch.as_tensor(frames[4 * b:4 * b + 4],
+                                        device=cuda_device)})
+        for i in range(4):
+            assert torch.equal(res[4 * b + i], ref[i]), 4 * b + i
+    assert eng._stager.counts() == (0, 0) and eng._ahead == {}
+
+
+@pytest.mark.cuda
+def test_the_stagers_threads_end_with_the_engine(cuda_device, busy_host):
+    """The stager's threads are the process's own: none is left once the
+    engine is collected; frames on the card never make a stager."""
+    import gc
+    import os
+
+    def threads():
+        return len(os.listdir("/proc/self/task"))
+
+    def serve(frames):
+        eng = FrameEngine(max_batch=2, tile_shape=(64, 96),
+                          device=cuda_device)
+        eng.run([FrameRequest(rid=i, pipeline="unsharp-m",
+                              frames={"in": f})
+                 for i, f in enumerate(frames)])
+        return eng
+    host = list(_frames(43, 4, 64, 96))
+    serve(host)                       # torch's own threads start here
+    gc.collect()
+    before = threads()
+    eng = serve(host)
+    assert eng._stager is not None
+    assert threads() >= before + eng._stager.threads
+    del eng
+    gc.collect()
+    assert threads() <= before
+    resident = serve([torch.from_numpy(f).to(cuda_device) for f in host])
+    assert resident._stager is None
 
 
 @pytest.mark.cuda
