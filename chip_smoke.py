@@ -32,8 +32,9 @@ inputs. Each phase prints one JSON line:
  4b. unorm8  — the decode of 8-bit frames (``kernels.unorm8``) on its main
                path: ``FrameEngine(pixels="unorm8")`` serving 3840x2160
                uint8 frames of the 7 pipelines in batches of 4, twice
-               over (the first hand-overs of a run by ``torch.as_tensor``,
-               the later ones staged while the host stays busy), traced:
+               over (the first frames of a run by ``torch.as_tensor``,
+               the later ones staged ahead by the engine's stager while
+               the host stays busy), traced:
                the decode's launches counted from zero over that run, one
                ``engine.unorm8`` span a launch inside ``engine.assemble``,
                ``h2d_bytes`` a byte a pixel, every served frame against

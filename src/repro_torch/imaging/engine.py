@@ -32,19 +32,25 @@ decoded there (:mod:`repro_torch.kernels.unorm8`, under an
 ``engine.unorm8`` span inside ``engine.assemble``), so every rung serves
 the decoded frame; admission refuses a frame of another type.
 
-**Staging ahead.** On a card, while the host is busy (the rule by which
-``_device.hand_over`` stages through page-locked memory), ``submit``
-hands each host frame of an untiled request, float32 or unorm8 as the
-engine takes them and laid out as the stager can read it, to the engine's
+**Staging ahead.** On a card, while the host is busy (the engine's own
+run rule: :data:`FrameEngine.RUN` hand-overs in a row, each begun within
+:data:`FrameEngine.WARM_S` of the last one's end), ``submit`` hands each
+host frame, float32 or unorm8 as the engine takes them and laid out as
+the stager can read it, to the engine's
 :class:`~repro_torch.kernels.stage_ahead.Stager`. Its threads copy the
-oldest such frames to the card, at most ``2 * max_batch`` at a time,
-while the serving thread runs earlier batches; the batch's hand-over
-gathers them on the card and stages the rest itself. The ring is made at
-the first frame staged ahead, remade for a larger frame once no ticket
-of the old one is out, and freed, its threads joined, with the engine. A
-request's slots are released however it leaves the engine: delivered,
-failed, shed or expired; a retry down the ladder claims them again. A
-frame must not change between its ``submit`` and its result.
+oldest such frames through page-locked memory to the card, at most
+``2 * max_batch`` at a time, while the serving thread runs earlier
+batches; the batch's hand-over (:mod:`.hand_over`) gathers them on the
+card and moves every other frame by ``torch.as_tensor``. The ring holds
+``2 * max_batch`` slots of the largest frame it has been given, in
+page-locked memory and again on the card: at the default ``max_batch``
+of 4, 66,355,200 B each for 1920x1080 float32 frames and 265,420,800 B
+each for 3840x2160 float32 frames (tiled frames are staged too). It is
+made at the first frame staged ahead, remade for a larger frame once no
+ticket of the old one is out, and freed, its threads joined, with the
+engine. A request's slots are released however it leaves the engine:
+delivered, failed, shed or expired; a retry down the ladder claims them
+again. A frame must not change between its ``submit`` and its result.
 
 **Resilient mode** (``resilience=ResilienceConfig(...)``) threads the
 serving control plane through all three:
@@ -77,13 +83,13 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from time import monotonic as _now
 from typing import Mapping
 
 import numpy as np
 import torch
 
-from repro_torch import _device
-from repro_torch._device import h2d_span, hand_over, stream_synchronize
+from repro_torch._device import h2d_span, stream_synchronize
 from repro_torch.kernels import ref, stage_ahead, unorm8
 from repro_torch.obs import trace
 from repro_torch.resilience import (AdmissionController, FailedFrame,
@@ -93,6 +99,7 @@ from repro_torch.resilience import (AdmissionController, FailedFrame,
                                     split_expired)
 from repro_torch.serve.scheduling import BoundedFifo, assemble_batch
 
+from .hand_over import hand_over
 from .metrics import EngineMetrics
 from .plan_cache import PlanCache
 from .tiling import execute_tiled, rows_per_step_for_tile
@@ -126,6 +133,14 @@ class CompletedFrame:
 
 
 class FrameEngine:
+    # The host is busy, and admission stages frames ahead, once the engine
+    # has handed over RUN times in a row, each hand-over begun within
+    # WARM_S of the previous one's end: from the fifth of such a run on;
+    # an idle host's frames go by torch.as_tensor. The values come from a
+    # sweep of idle gaps before a staging copy (PERF.md).
+    WARM_S = 0.002
+    RUN = 4
+
     def __init__(self, cache: PlanCache | None = None,
                  max_batch: int = 4, max_pending: int = 64,
                  tile_shape: tuple[int, int] = (128, 128),
@@ -175,6 +190,10 @@ class FrameEngine:
         self._stager: stage_ahead.Stager | None = None
         self._ring_bytes = 0
         self._ahead: dict[int, tuple] = {}
+        # the run rule: _now() at the end of the latest hand-over, and how
+        # many hand-overs before it followed their predecessor in WARM_S
+        self._last_hand_over = -float("inf")
+        self._run = 0
         if resilience is not None:
             self._admission = AdmissionController(
                 resilience.rate, resilience.burst, clock=trace.now)
@@ -230,30 +249,37 @@ class FrameEngine:
         return ok
 
     # --------------------------------------------------------- stage ahead
+    def _host_busy(self) -> bool:
+        """Whether a hand-over begun now would be the fifth or later of a
+        run: the :data:`RUN` before it each began within :data:`WARM_S`
+        of the previous one's end, and the latest ended within
+        :data:`WARM_S`."""
+        return self._run >= self.RUN - 1 \
+            and _now() - self._last_hand_over < self.WARM_S
+
     def _stages_ahead(self) -> bool:
         """Whether admission stages frames ahead now: on a card, while
         the host is busy, which the stager still holding earlier frames
-        of this engine shows as well as the hand-overs' rule. (By that
-        rule alone, a step that ended late on a slow host turned staging
-        ahead off; the frames then handed over inline shared the copy
-        engine with the stager's and kept steps late, and in one run half
-        the frames admitted went inline, at 0.75 of the fps of an engine
-        that stages inline.)"""
+        of this engine shows as well as the run rule. (By that rule
+        alone, a step that ended late on a slow host turned staging ahead
+        off; the frames then handed over inline shared the copy engine
+        with the stager's and kept steps late, and in one run half the
+        frames admitted went inline, at 0.75 of the fps of an engine that
+        stages inline.)"""
         return self.device.type == "cuda" and (
-            bool(self._ahead) or _device.staging_pays())
+            bool(self._ahead) or self._host_busy())
 
     def _stage_ahead(self, req: FrameRequest) -> None:
-        """Hand ``req``'s frames to the stager when :meth:`_stages_ahead`,
-        the request is untiled and each input frame is a host frame of
-        the engine's pixel type that the stager can read as it lies; else
-        leave them to the hand-over."""
+        """Hand ``req``'s frames to the stager when :meth:`_stages_ahead`
+        and each input frame is an (h, w) host frame of the engine's pixel
+        type that the stager can read as it lies; else leave them to the
+        hand-over."""
         first = next(iter(req.frames.values()))
         if isinstance(first, torch.Tensor) and first.device.type != "cpu" \
                 or id(req) in self._ahead or not self._stages_ahead():
             return
         shape = np.shape(first)
-        th, tw = self.tile_shape
-        if len(shape) != 2 or shape[0] > th or shape[1] > tw:
+        if len(shape) != 2:
             return
         h, w = shape
         dtype = torch.uint8 if self.pixels == "unorm8" else torch.float32
@@ -294,6 +320,20 @@ class FrameEngine:
         s = self._stager
         return s, {n: [e[2][n] if e is not None and e[1] is s else None
                        for e in entries] for n in names}
+
+    def _hand_over(self, name: str, reqs: list[FrameRequest],
+                   slots: int) -> dict[str, torch.Tensor]:
+        """``hand_over`` of ``reqs``' frames of pipeline ``name`` into
+        ``slots`` slots, with their tickets, the run rule kept around
+        it."""
+        names = self.cache.dag_for(name).input_stages()
+        self._run = self._run + 1 \
+            if _now() - self._last_hand_over < self.WARM_S else 0
+        out = hand_over({n: [r.frames[n] for r in reqs] for n in names},
+                        slots, self.device, self.pixels,
+                        self._tickets(reqs, names), pipeline=name)
+        self._last_hand_over = _now()
+        return out
 
     def _release(self, reqs) -> None:
         """Hand back the slots of ``reqs`` staged ahead."""
@@ -413,14 +453,11 @@ class FrameEngine:
         caller's clock measures execution, not enqueue."""
         th, tw = self.tile_shape
         dev = self.device
-        names = self.cache.dag_for(name).input_stages()
         if tiled:
-            staged = hand_over({n: [r.frames[n] for r in reqs]
-                                for n in names}, len(reqs), dev,
-                               self.pixels, pipeline=name)
+            staged = self._hand_over(name, reqs, len(reqs))
             with trace.span("engine.execute", pipeline=name):
                 outs = [execute_tiled(self.cache, name,
-                                      {n: staged[n][j] for n in names},
+                                      {n: t[j] for n, t in staged.items()},
                                       th, tw, batch=self.max_batch,
                                       rows_per_step=rps, tune=tune,
                                       prefetch_depth=self.prefetch_depth)
@@ -431,9 +468,7 @@ class FrameEngine:
                                      rows_per_step=rps, tune=tune,
                                      prefetch_depth=self.prefetch_depth)
         # idle slots are zero frames made on the device, not handed over
-        inputs = hand_over({n: [r.frames[n] for r in reqs] for n in names},
-                           self.max_batch, dev, self.pixels,
-                           self._tickets(reqs, names), pipeline=name)
+        inputs = self._hand_over(name, reqs, self.max_batch)
         with trace.span("engine.execute", pipeline=name):
             batch_out = ex(inputs)
             stream_synchronize(dev)
@@ -452,10 +487,7 @@ class FrameEngine:
         dev = self.device
         names = dag.input_stages()
         if self.pixels == "unorm8":
-            staged = hand_over({n: [r.frames[n] for r in reqs]
-                                for n in names}, len(reqs), dev,
-                               self.pixels, self._tickets(reqs, names),
-                               pipeline=name)
+            staged = self._hand_over(name, reqs, len(reqs))
             host = ()
 
             def feed(j, n):

@@ -14,8 +14,8 @@ card on a stream of the stager's own.
 :meth:`claim` gathers a batch's frames from their device slots on the
 caller's stream and waits for a frame being staged. A frame not yet
 started goes to the front of the queue and is waited for when a slot is
-free for it; else it is taken back (the caller stages it itself). On an
-H100's host, taking back every frame not started had the caller's
+free for it; else it is taken back (the caller hands it over itself). On
+an H100's host, taking back every frame not started had the caller's
 staging on torch's intra-op threads contend with these for the cores
 whenever they fell behind (671 frames/s against 1,500 inline).
 :meth:`release` hands the slots back once the work the caller queued
@@ -33,10 +33,15 @@ import weakref
 import numpy as np
 import torch
 
-from repro_torch._device import AHEAD, TAKEN, WAITED, raw_stream
+from repro_torch._device import raw_stream
 from . import _build
 
 __all__ = ["AHEAD", "TAKEN", "WAITED", "Stager", "copy_threads", "layout"]
+
+# What claiming a frame found (:meth:`Stager.claim`, the codes of
+# ``stager_claim``): its copy to the card issued before the claim, issued
+# while the claim waited, or not started with no slot free, so taken back.
+TAKEN, WAITED, AHEAD = 0, 1, 2
 
 _NP = {torch.float32: np.dtype(np.float32), torch.uint8: np.dtype(np.uint8)}
 

@@ -97,7 +97,7 @@ _POINT_OPS = ("relay", "identity", "square", "mag", "prod", "thresh",
               "unsharp", "denoise_comb", "harris_resp", "bg_subtract",
               "frame_diff")
 
-# Launch geometry from perf/geometry_sweep.py at 1080p, R=8 (PERF.md).
+# Launch geometry from tools/geometry_sweep.py at 1080p, R=8 (PERF.md).
 STRIP_W = 240          # output columns per CTA
 THREADS = 256          # threads per CTA at most (one per ring column)
 SMEM_LIMIT = 232_448   # shared memory one H100 block may reserve (227 KB)

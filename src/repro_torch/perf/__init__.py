@@ -18,9 +18,9 @@ analytic predictions and the running system:
     seed + config fingerprint, and the regression gate that compares a
     run against a baseline within explicit tolerance bands.
 
-Beside them, the kernel tools: :mod:`timing` (CUDA events and device
-time), :mod:`kernel_times`, :mod:`standalone_times` and
-:mod:`geometry_sweep`.
+Beside them, :mod:`timing` (CUDA events and device time), which the
+kernel tools under ``tools/`` (``kernel_times.py``,
+``standalone_times.py``, ``geometry_sweep.py``) time with.
 """
 import importlib
 

@@ -511,25 +511,22 @@ def test_video_engine_serves_through_the_kernel(cuda_device):
     assert got.device.type == "cuda" and torch.equal(got, exp)
 
 
-@pytest.fixture(params=["staged", "pageable"])
+@pytest.fixture(params=["ahead", "inline"])
 def hand_over_path(request, monkeypatch):
-    """Every hand-over to the card by one path: staged (the host busy),
-    or by ``torch.as_tensor`` (the host idle), with no frame staged
-    ahead at admission (the tests after these take that path). Yields the
-    page-locked pairs the hand-overs made, held so no later tensor takes
-    their memory."""
-    from repro_torch import _device
-    monkeypatch.setattr(FrameEngine, "_stages_ahead", lambda self: False)
-    staged = request.param == "staged"
-    monkeypatch.setattr(_device, "WARM_S", float("inf") if staged else 0.0)
-    monkeypatch.setattr(_device, "_last_hand_over", 0.0)
-    monkeypatch.setattr(_device, "_run", _device.RUN)
-    made, pair = [], _device.page_locked_pair
-    monkeypatch.setattr(_device, "page_locked_pair",
-                        lambda device, shape, *dtype:
-                        made.append(pair(device, shape, *dtype)) or made[-1])
+    """Every frame to the card by one way: staged ahead by the engine's
+    stager (the host busy), or by ``torch.as_tensor`` (the host idle).
+    Yields the stagers the engines made, held so no later tensor takes
+    their ring's memory."""
+    ahead = request.param == "ahead"
+    monkeypatch.setattr(FrameEngine, "_host_busy", lambda self: ahead)
+    made, real = [], stage_ahead.Stager
+
+    def make(*a, **kw):
+        made.append(real(*a, **kw))
+        return made[-1]
+    monkeypatch.setattr(stage_ahead, "Stager", make)
     yield made
-    assert bool(made) == staged
+    assert bool(made) == ahead
 
 
 @pytest.mark.cuda
@@ -537,9 +534,9 @@ def hand_over_path(request, monkeypatch):
 def test_staged_batches_equal_the_pageable_path_bitwise(cuda_device, h, w,
                                                         hand_over_path):
     """Two successive batches handed over (the second partial and in
-    float64) equal the executor on ``torch.as_tensor`` frames stacked
-    with zero slots, and the first batch's outputs hold after the second
-    batch's hand-over."""
+    float64, which the stager does not take) equal the executor on
+    ``torch.as_tensor`` frames stacked with zero slots, and the first
+    batch's outputs hold after the second batch's hand-over."""
     eng = FrameEngine(max_batch=4, tile_shape=(h, w), device=cuda_device)
     ex = eng.cache.executor_for(
         "harris-m", h, w, batch=4,
@@ -568,24 +565,47 @@ def _storages(tensors) -> set:
     return {t.untyped_storage().data_ptr() for t in tensors}
 
 
+def _rings(stagers) -> list:
+    """The page-locked and device halves of each stager's ring (the
+    arguments its finalizer frees them with)."""
+    return [t for s in stagers for t in s._close.peek()[2][2:4]]
+
+
+def _served_ahead(feng, frames):
+    """``frames`` through ``feng``, the tiled one first so the ring is
+    made at its size; every frame staged ahead (each span's
+    ``pinned_bytes`` its ``h2d_bytes``). Returns the outputs by rid."""
+    from repro_torch.obs import trace
+    trace.clear()
+    trace.enable()
+    try:
+        res = feng.run([FrameRequest(rid=i, pipeline="unsharp-m",
+                                     frames={"in": f})
+                        for i, f in enumerate(frames)])
+        asm = [e for e in trace.events() if e.name == "engine.assemble"]
+    finally:
+        trace.disable()
+        trace.clear()
+    # the tiled frame, the batch of three and the lone fifth frame
+    assert len(asm) == 3 and all(
+        e.attrs["pinned_bytes"] == e.attrs["h2d_bytes"] > 0 for e in asm)
+    return res
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("hand_over_path", ["staged"], indirect=True)
+@pytest.mark.parametrize("hand_over_path", ["ahead"], indirect=True)
 def test_no_output_shares_storage_with_a_staging_buffer(cuda_device,
                                                          hand_over_path):
-    """A frame batch, a lone frame and a tiled one, every one staged: no
-    returned output lies in a buffer a hand-over made, while those
-    buffers are alive."""
+    """A tiled frame, a frame batch and a lone frame, every one staged
+    ahead: no returned output lies in the stager's ring, while it is
+    alive."""
     feng = FrameEngine(max_batch=3, tile_shape=(40, 48), device=cuda_device)
-    res = feng.run([FrameRequest(rid=i, pipeline="unsharp-m",
-                                 frames={"in": f})
-                    for i, f in enumerate(list(_frames(23, 4, 36, 44))
-                                          + [_frames(24, 1, 90, 130)[0]])])
-    # the batch of three, the lone fourth frame and the tiled one
-    assert len(hand_over_path) == 3
-    staging = [t for pair in hand_over_path for t in pair]
+    res = _served_ahead(feng, [_frames(24, 1, 90, 130)[0]]
+                        + list(_frames(23, 4, 36, 44)))
+    assert len(hand_over_path) == 1
     outs = list(res.values())
     assert len(outs) == 5
-    assert not _storages(outs) & _storages(staging)
+    assert not _storages(outs) & _storages(_rings(hand_over_path))
 
 
 def _u8(seed, n, h, w):
@@ -653,26 +673,22 @@ def test_unorm8_4k_batches_equal_the_reference(cuda_device, hand_over_path):
     dec = [e for e in spans if e.name == "engine.unorm8"]
     assert [(e.parent, e.attrs["pixels"]) for e in dec] == \
         [("engine.assemble", 4 * h * w)] * 2
-    assert all(t.dtype == torch.uint8 for pair in hand_over_path
-               for t in pair)
+    assert all(s.slot_bytes == h * w for s in hand_over_path)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hand_over_path", ["staged"], indirect=True)
+@pytest.mark.parametrize("hand_over_path", ["ahead"], indirect=True)
 def test_no_unorm8_output_shares_storage_with_a_staging_buffer(
         cuda_device, hand_over_path):
-    """A unorm8 batch, a lone frame and a tiled one, every one staged: no
-    output lies in a buffer a hand-over made."""
+    """A tiled unorm8 frame, a batch and a lone frame, every one staged
+    ahead: no output lies in the stager's ring."""
     feng = FrameEngine(max_batch=3, tile_shape=(40, 48), device=cuda_device,
                        pixels="unorm8")
-    frames = list(_u8(25, 4, 36, 44)) + [_u8(26, 1, 90, 130)[0]]
-    res = feng.run([FrameRequest(rid=i, pipeline="unsharp-m",
-                                 frames={"in": f})
-                    for i, f in enumerate(frames)])
-    assert len(hand_over_path) == 3
-    staging = [t for pair in hand_over_path for t in pair]
+    frames = [_u8(26, 1, 90, 130)[0]] + list(_u8(25, 4, 36, 44))
+    res = _served_ahead(feng, frames)
+    assert len(hand_over_path) == 1
     outs = [res[i] for i in range(len(frames))]
-    assert not _storages(outs) & _storages(staging)
+    assert not _storages(outs) & _storages(_rings(hand_over_path))
     for f, out in zip(frames, outs):
         x = torch.from_numpy(unorm8.TABLE[f]).to(cuda_device)
         assert torch.equal(out, sp.stencil_pipeline_plain(
@@ -681,12 +697,8 @@ def test_no_unorm8_output_shares_storage_with_a_staging_buffer(
 
 @pytest.fixture
 def busy_host(monkeypatch):
-    """Every hand-over staged and every admission staging ahead, as
-    while the host is busy."""
-    from repro_torch import _device
-    monkeypatch.setattr(_device, "WARM_S", float("inf"))
-    monkeypatch.setattr(_device, "_last_hand_over", 0.0)
-    monkeypatch.setattr(_device, "_run", _device.RUN)
+    """Every admission staging ahead, as while the host is busy."""
+    monkeypatch.setattr(FrameEngine, "_host_busy", lambda self: True)
 
 
 def _settled(stager, held):
@@ -700,10 +712,10 @@ def _settled(stager, held):
     time.sleep(0.05)
 
 
-def _inline(pixels, h, w, name, batches):
+def _inline(pixels, h, w, name, batches, tile_shape=None):
     """Outputs of an engine that stages nothing ahead, batch by batch."""
-    eng = FrameEngine(max_batch=4, tile_shape=(h, w), device="cuda",
-                      pixels=pixels)
+    eng = FrameEngine(max_batch=4, tile_shape=tile_shape or (h, w),
+                      device="cuda", pixels=pixels)
     eng._stages_ahead = lambda: False
     out = []
     for k, frames in enumerate(batches):
@@ -759,6 +771,40 @@ def test_frames_staged_ahead_equal_the_inline_path(cuda_device, busy_host,
         dec = [e for e in spans if e.name == "engine.unorm8"]
         assert [e.parent for e in dec] == ["engine.assemble"] * 2
         assert launches == 2
+    assert eng._stager.counts() == (0, 0)
+
+
+@pytest.mark.cuda
+def test_tiled_frames_staged_ahead_equal_the_inline_path(cuda_device,
+                                                         busy_host):
+    """1080p frames served through 128x128 tiles: a batch of three staged
+    ahead (its span's ``pinned_bytes`` and ``ahead_bytes`` its
+    ``h2d_bytes``) and then claimed by the tiled rung's hand-over, bit for
+    bit the outputs of an engine that hands them over inline."""
+    from repro_torch.obs import trace
+    h, w = 1080, 1920
+    frames = list(_frames(44, 3, h, w))
+    eng = FrameEngine(max_batch=4, tile_shape=(128, 128), device=cuda_device)
+    trace.clear()
+    trace.enable()
+    try:
+        for i, f in enumerate(frames):
+            assert eng.submit(FrameRequest(rid=i, pipeline="harris-m",
+                                           frames={"in": f}))
+        assert eng._stager.slot_bytes == 4 * h * w
+        _settled(eng._stager, len(frames))
+        got = [r.output for r in eng.step()]
+        spans = trace.events()
+    finally:
+        trace.disable()
+        trace.clear()
+    want = _inline("float32", h, w, "harris-m", [frames],
+                   tile_shape=(128, 128))
+    assert len(got) == 3 and all(torch.equal(g, e)
+                                 for g, e in zip(got, want))
+    (asm,) = [e for e in spans if e.name == "engine.assemble"]
+    assert (asm.attrs["h2d_bytes"], asm.attrs["pinned_bytes"],
+            asm.attrs["ahead_bytes"]) == (3 * 4 * h * w,) * 3
     assert eng._stager.counts() == (0, 0)
 
 

@@ -27,8 +27,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import _device
 from repro_torch.imaging import FrameEngine, FrameRequest
+from repro_torch.imaging import engine as engine_module
 from repro_torch.kernels import stage_ahead
 from repro_torch.obs import trace
 from repro_torch.resilience import Priority, ResilienceConfig, RetryPolicy
@@ -221,7 +221,7 @@ def _case_unorm8(fake):
 def _case_tiled(fake):
     eng = _engine()
     eng.submit(_reqs(_frames(1, 20, 24))[0])        # larger than the tile
-    return 0
+    return 1
 
 
 def _case_float64(fake):
@@ -265,6 +265,8 @@ WHO = {
 
 @pytest.mark.parametrize("case", sorted(WHO))
 def test_only_host_untiled_frames_of_the_engines_type_are_staged(fake, case):
+    """Host frames of the engine's type whose rows the stager can read,
+    tiled or not; nothing else."""
     want = WHO[case](fake)
     puts = sum(s.next - 1 for s in fake)
     assert puts == want
@@ -273,28 +275,27 @@ def test_only_host_untiled_frames_of_the_engines_type_are_staged(fake, case):
 @pytest.mark.parametrize("where", ["idle-host", "cpu-engine"])
 def test_an_idle_host_or_a_cpu_engine_stages_nothing(monkeypatch, where):
     """Unpatched admission: a CPU engine never stages; on a card, an idle
-    host does not (the rule of ``_device.staging_pays``)."""
+    host does not (the engine's run rule, ``FrameEngine._host_busy``)."""
     FakeStager.made = []
     monkeypatch.setattr(stage_ahead, "Stager", FakeStager)
     if where == "idle-host":
-        monkeypatch.setattr(_device, "_last_hand_over", -float("inf"))
-        assert not _device.staging_pays()
         monkeypatch.setattr(FrameEngine, "device",
                             property(lambda self: torch.device("cuda")))
         eng = _engine()
+        assert not eng._host_busy()
         eng._stage_ahead(_reqs(_frames(1))[0])
     else:
-        monkeypatch.setattr(_device, "WARM_S", float("inf"))
-        monkeypatch.setattr(_device, "_last_hand_over", 0.0)
-        monkeypatch.setattr(_device, "_run", _device.RUN)
-        assert _device.staging_pays()
+        monkeypatch.setattr(FrameEngine, "WARM_S", float("inf"))
+        eng = _engine()
+        eng._run, eng._last_hand_over = FrameEngine.RUN, 0.0
+        assert eng._host_busy()
         frames = _frames(3)
-        _same(_engine().run(_reqs(frames)), _plain(frames))
+        _same(eng.run(_reqs(frames)), _plain(frames))
     assert FakeStager.made == []
 
 
 def test_frames_in_the_stagers_hands_keep_admission_staging(monkeypatch):
-    """On a card, admission stages ahead while the hand-overs' rule says
+    """On a card, admission stages ahead while the engine's run rule says
     the host is busy or the stager still holds frames of the engine; an
     idle host with nothing in its hands stages nothing."""
     FakeStager.made = []
@@ -302,7 +303,8 @@ def test_frames_in_the_stagers_hands_keep_admission_staging(monkeypatch):
     monkeypatch.setattr(FrameEngine, "device",
                         property(lambda self: torch.device("cuda")))
     busy = {"now": True}
-    monkeypatch.setattr(_device, "staging_pays", lambda: busy["now"])
+    monkeypatch.setattr(FrameEngine, "_host_busy",
+                        lambda self: busy["now"])
     eng = _engine()
     reqs = _reqs(_frames(3))
     eng._stage_ahead(reqs[0])
@@ -316,18 +318,20 @@ def test_frames_in_the_stagers_hands_keep_admission_staging(monkeypatch):
 
 
 def test_the_busy_rule_is_the_hand_overs(monkeypatch):
-    """``staging_pays`` is true exactly when a hand-over begun now would
-    be staged."""
-    monkeypatch.setattr(_device, "_now", lambda: 10.0)
-    for run, last, want in ((_device.RUN - 1, 9.999, True),
-                            (_device.RUN - 2, 9.999, False),
-                            (_device.RUN - 1, 9.99, False),
-                            (_device.RUN + 5, 9.9995, True)):
-        monkeypatch.setattr(_device, "_run", run)
-        monkeypatch.setattr(_device, "_last_hand_over", last)
-        assert _device.staging_pays() == want
-        nxt = run + 1 if 10.0 - last < _device.WARM_S else 0
-        assert (nxt >= _device.RUN) == want
+    """``_host_busy`` is true exactly when a hand-over begun now is the
+    ``RUN + 1``-th or later of a run, as the engine's hand-over counts
+    it."""
+    monkeypatch.setattr(engine_module, "_now", lambda: 10.0)
+    run_ = FrameEngine.RUN
+    eng = _engine()
+    for run, last, want in ((run_ - 1, 9.999, True), (run_ - 2, 9.999, False),
+                            (run_ - 1, 9.99, False),
+                            (run_ + 5, 9.9995, True)):
+        eng._run, eng._last_hand_over = run, last
+        assert eng._host_busy() == want
+        eng._hand_over(PIPE, _reqs(_frames(1)), 2)
+        assert (eng._run >= run_) == want
+        assert eng._last_hand_over == 10.0
 
 
 # ------------------------------------------------------------- the ring
@@ -432,6 +436,23 @@ def test_the_ring_is_remade_for_a_larger_frame_once_it_is_free(fake):
     assert fake[1].slot_bytes == 4 * 12 * 14 and fake[1].next == 2
     eng.run([])
     assert eng._ahead == {}
+
+
+def test_a_tiled_request_is_staged_ahead_and_equals_the_plain_path(fake):
+    """Frames larger than ``tile_shape`` on a busy card: staged ahead,
+    claimed by the tiled rung's hand-over (one batch of the step's
+    frames) and served bit for bit as by an engine that stages
+    nothing."""
+    frames = _frames(3, 20, 24)
+    eng = _engine()
+    got, spans = _traced(lambda: eng.run(_reqs(frames)))
+    _same(got, _plain(frames))
+    (s,) = fake
+    assert s.next - 1 == 3 and s.slot_bytes == 4 * 20 * 24
+    assert s.claims == [[stage_ahead.AHEAD] * 2, [stage_ahead.AHEAD]]
+    assert [(sp.attrs["pinned_bytes"], sp.attrs["ahead_bytes"])
+            for sp in spans] == [(2 * 4 * 20 * 24,) * 2, (4 * 20 * 24,) * 2]
+    assert s.out == 0 and eng._ahead == {}
 
 
 # ------------------------------------------------------- release on exit
@@ -586,7 +607,6 @@ def test_device_frames_and_the_video_engine_never_touch_the_stager(
     def boom(*a, **kw):
         raise AssertionError("the stager was made")
     monkeypatch.setattr(stage_ahead, "Stager", boom)
-    monkeypatch.setattr(_device, "staging_pays", lambda: True)
     monkeypatch.setattr(FrameEngine, "_stages_ahead", lambda self: True)
     eng = _engine()
     eng._stage_ahead(_reqs([torch.empty((H, W), device="meta")])[0])

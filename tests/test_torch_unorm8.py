@@ -6,7 +6,7 @@ every rung (a compiled batch with idle slots, the tiled rung, the
 reference rung) bit for bit against the benchmark's plain reference
 (``bench_port/reference/pipelines.py``) on the decoded frames; frames of
 another type refused at admission; the float32 engine as it was; and
-the bytes the hand-over says it moved, by both of its paths. The card
+the bytes the hand-over says it moved, staged ahead and inline. The card
 runs the decode kernel and the same engine in ``tests/test_torch_cuda.py``.
 """
 import numpy as np
@@ -15,11 +15,11 @@ import torch
 
 from bench_port.harness import check
 from bench_port.reference import pipelines as reference
-from repro_torch import _device
-from repro_torch._device import hand_over
 from repro_torch.core import algorithms
 from repro_torch.imaging import FrameEngine, FrameRequest
-from repro_torch.kernels import unorm8
+from repro_torch.imaging import hand_over as ho
+from repro_torch.imaging.hand_over import hand_over
+from repro_torch.kernels import stage_ahead, unorm8
 from repro_torch.obs import trace
 from repro_torch.resilience import (RejectedFrame, ResilienceConfig,
                                     RetryPolicy)
@@ -185,37 +185,48 @@ def test_a_frame_of_another_type_is_refused_at_admission(mode, kind):
 
 
 # ------------------------------------------------------------- hand-over
-@pytest.fixture(params=["staged", "pageable"])
+@pytest.fixture(params=["ahead", "inline"])
 def fake_card(request, monkeypatch):
-    """Hand-overs to ``CARD`` by one path, with plain CPU tensors as the
-    page-locked pair (poisoned: NaN, or 0xA5 for bytes). Yields the
-    path's name and the pairs made."""
+    """Hand-overs to ``CARD`` on the CPU, every frame staged ahead by a
+    ``FakeStager`` (``tests/test_torch_stage_ahead.py``) or none, the
+    claims' buffers poisoned (NaN, or 0xA5 for bytes). Yields the way's
+    name, a hand-over by it (``hand_over``'s arguments) and the buffers
+    made."""
+    from test_torch_stage_ahead import FakeStager
     made = []
+    empty, stacked = torch.empty, ho._stacked
 
-    def pair(device, shape, dtype=torch.float32):
-        fill = float("nan") if dtype.is_floating_point else 0xA5
-        bufs = (torch.full(shape, fill, dtype=dtype),
-                torch.full(shape, fill, dtype=dtype))
-        made.append(bufs)
-        return bufs
-    stacked = _device._stacked
-    staged = request.param == "staged"
-    monkeypatch.setattr(_device, "page_locked_pair", pair)
-    monkeypatch.setattr(_device, "_stacked",
+    def poisoned(*shape, dtype=None, device=None, **kw):
+        t = empty(*shape, dtype=dtype, **kw)
+        made.append(t.fill_(float("nan") if t.is_floating_point() else 0xA5))
+        return t
+    monkeypatch.setattr(torch, "empty", poisoned)
+    monkeypatch.setattr(ho, "_stacked",
                         lambda fs, slots, device, dtype=torch.float32:
                         stacked(fs, slots, torch.device("cpu"), dtype))
-    monkeypatch.setattr(_device, "WARM_S", float("inf") if staged else 0.0)
-    monkeypatch.setattr(_device, "_last_hand_over", 0.0)
-    monkeypatch.setattr(_device, "_run", _device.RUN)
-    yield request.param, made
+
+    def over(frames, slots, device, pixels="float32", **attrs):
+        if request.param == "inline":
+            return hand_over(frames, slots, device, pixels, **attrs)
+        dtype = torch.uint8 if pixels == "unorm8" else torch.float32
+        st = FakeStager(device, slots * len(frames),
+                        np.size(next(iter(frames.values()))[0])
+                        * dtype.itemsize)
+        tickets = {n: [st.put(f, stage_ahead.layout(f, dtype)) for f in fs]
+                   for n, fs in frames.items()}
+        out = hand_over(frames, slots, device, pixels, (st, tickets),
+                        **attrs)
+        assert st.claims == [[stage_ahead.AHEAD] * st.out]
+        return out
+    yield request.param, over, made
 
 
 @pytest.mark.parametrize("pixels", ["unorm8", "float32"])
 def test_the_spans_count_the_bytes_that_cross(fake_card, pixels):
     """``h2d_bytes``: one byte a unorm8 pixel, four a float32 one;
-    ``pinned_bytes`` the same on the staged path, 0 on the pageable one;
+    ``pinned_bytes`` and ``ahead_bytes`` the same staged ahead, 0 inline;
     the decode under ``engine.unorm8``, inside ``engine.assemble``."""
-    path, made = fake_card
+    path, over, made = fake_card
     h, w = 5, 7
     frames = _u8(11, 3, h, w)
     if pixels == "float32":
@@ -223,7 +234,7 @@ def test_the_spans_count_the_bytes_that_cross(fake_card, pixels):
     trace.clear()
     trace.enable()
     try:
-        got = hand_over({"in": frames}, 4, CARD, pixels, pipeline="p")["in"]
+        got = over({"in": frames}, 4, CARD, pixels, pipeline="p")["in"]
         events = trace.events()
     finally:
         trace.disable()
@@ -235,9 +246,10 @@ def test_the_spans_count_the_bytes_that_cross(fake_card, pixels):
     itemsize = 1 if pixels == "unorm8" else 4
     (asm,) = [e for e in events if e.name == "engine.assemble"]
     assert asm.attrs["h2d_bytes"] == itemsize * 3 * h * w
-    assert asm.attrs["pinned_bytes"] == \
-        (itemsize * 3 * h * w if path == "staged" else 0)
-    assert len(made) == (path == "staged")
+    assert asm.attrs["pinned_bytes"] == asm.attrs["ahead_bytes"] == \
+        (itemsize * 3 * h * w if path == "ahead" else 0)
+    # the claim's buffer, then the decode's
+    assert len(made) == (path == "ahead") + (pixels == "unorm8")
     decodes = [e for e in events if e.name == "engine.unorm8"]
     if pixels == "float32":
         assert decodes == []
@@ -245,19 +257,18 @@ def test_the_spans_count_the_bytes_that_cross(fake_card, pixels):
     (dec,) = decodes
     assert dec.parent == "engine.assemble"
     assert dec.attrs == {"pipeline": "p", "n_frames": 3, "pixels": 3 * h * w}
-    if path == "staged":                 # the bytes, the idle slot zero
-        host, raw = made[0]
+    if path == "ahead":                  # the bytes, the idle slot zero
+        raw = made[0]
         assert raw.dtype == torch.uint8 and raw.shape == (4, h, w)
         assert torch.equal(raw[:3], torch.from_numpy(np.stack(frames)))
         assert not raw[3].any()
 
 
 def test_a_lone_unorm8_frame_and_a_full_batch(fake_card):
-    _, made = fake_card
+    _, over, _ = fake_card
     for n, slots in ((1, 1), (4, 4), (2, 5)):
         frames = _u8(12 + n, n, 9, 11)
-        got = hand_over({"a": frames, "b": frames[::-1]}, slots, CARD,
-                        "unorm8")
+        got = over({"a": frames, "b": frames[::-1]}, slots, CARD, "unorm8")
         for name, fs in (("a", frames), ("b", frames[::-1])):
             assert torch.equal(got[name][:n], torch.from_numpy(
                 unorm8.TABLE[np.stack(fs)]))

@@ -1,6 +1,6 @@
 """Sweep the fused stencil kernel's launch geometry on the card.
 
-    python -m repro_torch.perf.geometry_sweep [--iters 20] [--seed 0]
+    PYTHONPATH=src python3 tools/geometry_sweep.py [--iters 20] [--seed 0]
 
 For each of the seven spatial pipelines at 1080p and R=8, single frames
 and batches of four, times one launch (CUDA events, mean over ``--iters``

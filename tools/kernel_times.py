@@ -1,9 +1,9 @@
 """Time the fused stencil kernel (K1a-K1d) of a source tree on the card.
 
-    PYTHONPATH=<tree>/src python3 src/repro_torch/perf/kernel_times.py \
+    PYTHONPATH=<tree>/src python3 tools/kernel_times.py \
         [--tag NAME] [--iters 20] [--depth 1] [--bare]
 
-Runs as a file, so ``repro_torch`` is imported from whichever tree
+``repro_torch`` is imported from whichever tree
 ``PYTHONPATH`` names: one call can time two commits of the kernel on one
 card (unpack the other commit with ``git archive`` and run parent,
 change, change, parent). For each of the seven spatial pipelines at

@@ -1,18 +1,22 @@
 """Time the hand-over of 1080p host frames to the card after the host
-idled, by either path of ``repro_torch._device.hand_over``.
+idled, by either way of ``repro_torch.imaging.hand_over.hand_over``.
 
     PYTHONPATH=src python3 tools/staging_gaps.py [--gaps-ms 0 0.5 1 2 4 8]
         [--reps 60] [--rounds 2]
 
 For each gap, for a lone frame and for a batch of four, and for each
-path (``pageable``: ``torch.as_tensor`` and a stack; ``staged``:
-through a page-locked buffer on torch's intra-op threads), it sleeps
-the gap, hands the frames over and waits for the card, ``--reps`` times
-in a row (the first five not counted). It prints one JSON line a round
-with the p50 and p95 ms of each, then ``cold_then_staged``: a lone
-frame staged right after a pageable one that followed 8 ms of sleep
-(two streams' frames in one step after the host idled). The card's
-name and power limit come first. Needs an NVIDIA GPU.
+way (``as_tensor``: ``torch.as_tensor`` and a stack; ``stager``: each
+frame put to a ``kernels.stage_ahead.Stager`` of eight 1080p slots, its
+threads copying it through page-locked memory, then the batch claimed
+by the hand-over and released), it sleeps the gap, hands the frames over
+and waits for the card, ``--reps`` times in a row (the first five not
+counted). The stager's time starts at the first put, so it holds the
+whole copy, as a hand-over right after admission would wait for it. It
+prints one JSON line a round with the p50 and p95 ms of each, then
+``cold_then_stager``: a lone frame through the stager right after one by
+``torch.as_tensor`` that followed 8 ms of sleep. The card's name and
+power limit come first, with the stager's thread count. Needs an NVIDIA
+GPU.
 """
 from __future__ import annotations
 
@@ -25,20 +29,28 @@ import time
 import numpy as np
 import torch
 
-from repro_torch._device import _stacked, page_locked_pair, stage_into
+from repro_torch.imaging.hand_over import hand_over
+from repro_torch.kernels import stage_ahead
 
 
-def _staged(frames, card):
-    host, dev = page_locked_pair(card, (len(frames), *frames[0].shape))
-    stage_into(frames, host, dev)
-    return dev
+def _as_tensor(frames, card, stager):
+    return hand_over({"in": frames}, len(frames), card)
 
 
-def _timed(fn, frames, gap_s, card):
+def _staged(frames, card, stager):
+    tickets = [stager.put(f, stage_ahead.layout(f, torch.float32))
+               for f in frames]
+    out = hand_over({"in": frames}, len(frames), card,
+                    ahead=(stager, {"in": tickets}))
+    stager.release(tickets)
+    return out
+
+
+def _timed(fn, frames, gap_s, card, stager):
     if gap_s:
         time.sleep(gap_s)
     t0 = time.perf_counter()
-    fn(frames)
+    fn(frames, card, stager)
     torch.cuda.synchronize(card)
     return 1e3 * (time.perf_counter() - t0)
 
@@ -56,36 +68,38 @@ def main():
     ap.add_argument("--rounds", type=int, default=2)
     args = ap.parse_args()
     card = torch.device("cuda")
+    h, w = 1080, 1920
+    stager = stage_ahead.Stager(card, 8, 4 * h * w)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip(), torch.get_num_threads(),
-          "intra-op threads", flush=True)
+                         text=True).stdout.strip(), stager.threads,
+          "copying threads", flush=True)
     rng = np.random.default_rng(0)
-    pool = [rng.random((1080, 1920), dtype=np.float32) for _ in range(16)]
-    paths = {"pageable": lambda fs: _stacked(fs, len(fs), card),
-             "staged": lambda fs: _staged(fs, card)}
-    for path in paths.values():                  # allocate, load the kernels
-        path(pool[:4])
+    pool = [rng.random((h, w), dtype=np.float32) for _ in range(16)]
+    ways = {"as_tensor": _as_tensor, "stager": _staged}
+    for way in ways.values():                    # allocate, load the kernels
+        way(pool[:4], card, stager)
     k = 0
     for r in range(args.rounds):
         row = {}
         for gap in args.gaps_ms:
             for n in (1, 4):
-                for name, fn in paths.items():
+                for name, fn in ways.items():
                     xs = []
                     for _ in range(args.reps):
                         k += n
                         xs.append(_timed(fn, [pool[(k + i) % 16]
                                               for i in range(n)],
-                                         gap / 1e3, card))
+                                         gap / 1e3, card, stager))
                     row[f"{name}_{n}@{gap:g}ms"] = _pct(xs[5:])
         print(json.dumps({"round": r, "ms": row}), flush=True)
     xs = []
     for _ in range(args.reps):
         k += 2
-        _timed(paths["pageable"], [pool[k % 16]], 8e-3, card)
-        xs.append(_timed(paths["staged"], [pool[(k + 1) % 16]], 0, card))
-    print(json.dumps({"cold_then_staged": _pct(xs[5:])}), flush=True)
+        _timed(_as_tensor, [pool[k % 16]], 8e-3, card, stager)
+        xs.append(_timed(_staged, [pool[(k + 1) % 16]], 0, card, stager))
+    print(json.dumps({"cold_then_stager": _pct(xs[5:])}), flush=True)
+    stager.close()
 
 
 if __name__ == "__main__":

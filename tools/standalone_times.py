@@ -1,6 +1,6 @@
 """Time the standalone kernels (conv2d, swa_decode) on the card, in turns.
 
-    python3 -m repro_torch.perf.standalone_times [--old-csrc DIR] \
+    PYTHONPATH=src python3 tools/standalone_times.py [--old-csrc DIR] \
         [--sweep] [--iters 50]
 
 Shapes: conv2d on a 1080p frame with a 3x3 and a 5x5 filter; swa_decode
