@@ -52,6 +52,21 @@ engine. A request's slots are released however it leaves the engine:
 delivered, failed, shed or expired; a retry down the ladder claims them
 again. A frame must not change between its ``submit`` and its result.
 
+**Lookahead.** On a card, in strict mode, an untiled batch is launched
+without waiting for it: each ``step()`` first assembles, hands over and
+launches the next batch when one is queued whose frames are untiled, and
+only then waits for the oldest batch in flight (an event recorded after
+its launch, not a synchronise of the stream, which would wait for the
+batch just launched too) and returns it. So the host's work for the next
+batch overlaps the card's work for the last one, and at most two batches
+are in flight. Batches come back in launch order; ``pending`` counts the
+frames in flight; ``step()`` returns ``[]`` only when nothing is queued
+or in flight. A batch's slots in the stager's ring go back at its
+hand-over, where its frames are gathered on the current stream. Every
+other batch (a CPU engine's, a resilient one's, a tiled one) runs as
+before, once nothing is in flight: launched, waited for, returned in
+one step.
+
 **Resilient mode** (``resilience=ResilienceConfig(...)``) threads the
 serving control plane through all three:
 
@@ -83,6 +98,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from collections import deque
 from time import monotonic as _now
 from typing import Mapping
 
@@ -130,6 +146,25 @@ class CompletedFrame:
     latency_s: float
     rung: str = "default"                 # ladder rung that served it
     deadline_missed: bool = False
+
+
+@dataclasses.dataclass(eq=False)
+class _Batch:
+    """One assembled batch, from its assembly to its return."""
+    name: str
+    reqs: list
+    queue_wait: float
+    tiled: bool
+    rps: int                              # rows_per_step that executes
+    t0: float = 0.0                       # its hand-over began
+    t1: float = 0.0                       # its wait ended
+    outs: list | None = None
+    smem: int = 0
+    rung: str = ""
+    error: Exception | None = None
+    ahead: bool = False                   # launched by an earlier step
+    event: object = None                  # recorded after its launch
+    stager: object = None                 # the ring it was gathered from
 
 
 class FrameEngine:
@@ -194,6 +229,12 @@ class FrameEngine:
         # many hand-overs before it followed their predecessor in WARM_S
         self._last_hand_over = -float("inf")
         self._run = 0
+        # the lookahead: on a card, in strict mode (the ladder needs each
+        # rung's outcome before the next batch); the batches launched and
+        # not yet returned, oldest first; the events free for reuse
+        self._lookahead = self.device.type == "cuda" and resilience is None
+        self._inflight: deque[_Batch] = deque()
+        self._events: list = []
         if resilience is not None:
             self._admission = AdmissionController(
                 resilience.rate, resilience.burst, clock=trace.now)
@@ -295,14 +336,16 @@ class FrameEngine:
 
     def _stager_for(self, nbytes: int) -> stage_ahead.Stager | None:
         """The ring, its slots ``nbytes`` or more; None while a smaller
-        ring still has tickets out (it takes no more frames, and is
-        remade once they are released)."""
+        ring still has tickets out or a batch gathered from it in flight
+        (it takes no more frames, and is remade once they are released
+        and the batches returned)."""
         self._ring_bytes = max(self._ring_bytes, nbytes)
         old = self._stager
         if old is not None and old.slot_bytes >= self._ring_bytes:
             return old
         if old is not None:
-            if any(e[1] is old for e in self._ahead.values()):
+            if any(e[1] is old for e in self._ahead.values()) \
+                    or any(b.stager is old for b in self._inflight):
                 return None
             old.close()
         self._stager = stage_ahead.Stager(self.device, 2 * self.max_batch,
@@ -442,7 +485,9 @@ class FrameEngine:
 
     @property
     def pending(self) -> int:
-        return sum(len(q) for q in self._queues.values())
+        """Frames queued or in flight."""
+        return sum(len(q) for q in self._queues.values()) \
+            + sum(len(b.reqs) for b in self._inflight)
 
     # ------------------------------------------------------------ execution
     def _run_compiled(self, name: str, reqs: list[FrameRequest],
@@ -464,15 +509,21 @@ class FrameEngine:
                         for j in range(len(reqs))]
                 stream_synchronize(dev)
             return outs, self.cache.smem_bytes()
-        ex = self.cache.executor_for(name, h, w, batch=self.max_batch,
-                                     rows_per_step=rps, tune=tune,
-                                     prefetch_depth=self.prefetch_depth)
-        # idle slots are zero frames made on the device, not handed over
-        inputs = self._hand_over(name, reqs, self.max_batch)
+        ex, inputs = self._handed_over(name, reqs, h, w, rps, tune)
         with trace.span("engine.execute", pipeline=name):
             batch_out = ex(inputs)
             stream_synchronize(dev)
         return [batch_out[i] for i in range(len(reqs))], ex.smem_bytes
+
+    def _handed_over(self, name: str, reqs: list[FrameRequest], h: int,
+                     w: int, rps: int, tune: bool) -> tuple:
+        """The untiled batch's executor and its inputs on the device,
+        ``max_batch`` slots (idle slots are zero frames made on the
+        device, not handed over)."""
+        ex = self.cache.executor_for(name, h, w, batch=self.max_batch,
+                                     rows_per_step=rps, tune=tune,
+                                     prefetch_depth=self.prefetch_depth)
+        return ex, self._hand_over(name, reqs, self.max_batch)
 
     def _run_reference(self, name: str,
                        reqs: list[FrameRequest]) -> tuple[list, int]:
@@ -535,8 +586,10 @@ class FrameEngine:
 
     # ----------------------------------------------------------------- step
     def step(self) -> list:
-        """Assemble and execute one batch; flushes pending shed/expiry
-        outcomes first. Returns a mix of CompletedFrame, ShedFrame, and
+        """Return the oldest batch in flight, or assemble and execute one
+        batch; flushes pending shed/expiry outcomes first. With the
+        lookahead (module docstring) the next batch is launched before
+        the wait. Returns a mix of CompletedFrame, ShedFrame, and
         FailedFrame results ([] when idle)."""
         results: list = []
         if self.resilience is not None and self.resilience.shed_expired:
@@ -544,12 +597,41 @@ class FrameEngine:
         if self._shed_outbox:
             results, self._shed_outbox = self._shed_outbox, []
         self._pending_gauge.set(self.pending)
+        fresh = None
+        if not self._inflight:
+            fresh = self._assemble()
+            if fresh is None:
+                return results
+            if not self._lookahead or fresh.tiled:
+                self._step_now(fresh, results)
+                return results
+            self._inflight.append(fresh)
+        oldest = self._inflight[0]
+        oldest.ahead = fresh is None
+        nxt = self._assemble() if self._next_goes_ahead() else None
+        with self._step_span(oldest) as sp:
+            if fresh is not None:
+                self._launch(fresh, wait=None if nxt else fresh)
+            if nxt is not None:
+                self._inflight.append(nxt)
+                self._launch(nxt, wait=oldest)
+            elif fresh is None:
+                self._launch(None, wait=oldest)
+            self._inflight.popleft()
+            done = [oldest]
+            if nxt is not None and nxt.error is not None:
+                done.append(self._inflight.pop())
+            self._deliver(done, sp, results)
+        return results
+
+    def _assemble(self) -> _Batch | None:
+        """Pop the next batch (``assemble_batch``), or None when idle."""
         name, reqs = assemble_batch(
             self._queues, self.max_batch,
             age_of=lambda r: r.submitted_at,
             compatible=lambda a, b: a.shape == b.shape)
         if not reqs:
-            return results
+            return None
         # queue wait: how long the batch's oldest frame sat admitted but
         # unserved — the term the executor time can never explain
         queue_wait = time.perf_counter() - min(r.submitted_at for r in reqs)
@@ -561,36 +643,128 @@ class FrameEngine:
         # height on the tiled path, by the frame height otherwise
         rps = rows_per_step_for_tile(min(th, h) if tiled else h,
                                      self.rows_per_step)
-        with trace.span("engine.step", engine="frame", pipeline=name,
-                        n_frames=len(reqs), tiled=tiled, rows_per_step=rps,
-                        queue_wait_s=queue_wait) as sp:
-            t0 = time.perf_counter()
+        return _Batch(name, reqs, queue_wait, tiled, rps)
+
+    def _next_goes_ahead(self) -> bool:
+        """Whether the batch :meth:`_assemble` would pop next may be
+        launched ahead: the lookahead is on, and its head frame, the
+        oldest head of the queues, is untiled."""
+        if not self._lookahead:
+            return False
+        heads = [q.peek() for q in self._queues.values() if q]
+        if not heads:
+            return False
+        h, w = min(heads, key=lambda r: r.submitted_at).shape
+        th, tw = self.tile_shape
+        return h <= th and w <= tw
+
+    def _step_span(self, b: _Batch):
+        return trace.span("engine.step", engine="frame", pipeline=b.name,
+                          n_frames=len(b.reqs), tiled=b.tiled,
+                          rows_per_step=b.rps, queue_wait_s=b.queue_wait)
+
+    def _step_now(self, b: _Batch, results: list) -> None:
+        """Execute ``b`` and wait for it, down the ladder in resilient
+        mode, and deliver it."""
+        with self._step_span(b) as sp:
+            b.t0 = time.perf_counter()
+            h, w = b.reqs[0].shape
             try:
-                outs, smem, rung = self._execute(name, reqs, h, w,
-                                                 tiled, rps)
+                b.outs, b.smem, b.rung = self._execute(b.name, b.reqs, h, w,
+                                                       b.tiled, b.rps)
             except Exception as e:  # noqa: BLE001 - structured failure:
                 # the batch is already popped; losing the exception here
                 # would strand it, raising would strand the *rest* of
                 # the queue — so it travels as FailedFrame results
-                self._release(reqs)
-                err = repr(e)
-                self.metrics.frames_failed += len(reqs)
-                sp.set(failed=len(reqs), error=type(e).__name__)
+                b.error = e
+            b.t1 = time.perf_counter()
+            self._release(b.reqs)
+            self._deliver([b], sp, results)
+
+    def _launch(self, b: _Batch | None, wait: _Batch | None) -> None:
+        """Hand ``b`` over and launch its executor call without waiting
+        for it (its slots in the ring go back at once: the gather is
+        queued), then wait for ``wait``'s call, in one ``engine.execute``
+        span. A failure of either is kept on its batch (structured
+        failure, as in :meth:`_step_now`)."""
+        if b is not None:
+            b.t0 = time.perf_counter()
+            b.rung = self._primary_rung
+            if any(id(r) in self._ahead for r in b.reqs):
+                b.stager = self._stager
+            h, w = b.reqs[0].shape
+            try:
+                ex, inputs = self._handed_over(b.name, b.reqs, h, w, b.rps,
+                                               self.autotune)
+            except Exception as e:  # noqa: BLE001 - see _step_now
+                b.error = e
+            self._release(b.reqs)
+            if b.error is not None:
+                b = None
+        if wait is not None and wait.error is not None:
+            wait = None
+        if b is None and wait is None:
+            return
+        with trace.span("engine.execute", pipeline=(b or wait).name):
+            if b is not None:
+                try:
+                    out = ex(inputs)
+                    b.outs = [out[i] for i in range(len(b.reqs))]
+                    b.smem = ex.smem_bytes
+                    b.event = self._record()
+                except Exception as e:  # noqa: BLE001 - see _step_now
+                    b.error = e
+            if wait is not None:
+                self._wait(wait)
+
+    def _record(self):
+        """An event recorded on the device's current stream: one of the
+        engine's, reused once its batch is returned; None on the CPU,
+        which has computed the batch already."""
+        if self.device.type != "cuda":
+            return None
+        ev = self._events.pop() if self._events else torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        return ev
+
+    def _wait(self, b: _Batch) -> None:
+        """Wait until ``b``'s executor call has run; an error the wait
+        raises fails ``b``."""
+        if b.event is not None:
+            try:
+                b.event.synchronize()
+            except Exception as e:  # noqa: BLE001 - see _step_now
+                b.error = e
+            self._events.append(b.event)
+            b.event = None
+        b.t1 = time.perf_counter()
+
+    def _deliver(self, batches: list[_Batch], sp, results: list) -> None:
+        """Append ``batches``' results to ``results`` in order: a failed
+        batch's as FailedFrame results, the others' frames as
+        CompletedFrame ones; the step's span ``sp`` says what it returned
+        (``launched_ahead``: of the frames delivered, those an earlier
+        step launched)."""
+        failed = 0
+        for b in batches:
+            if b.error is not None:
+                failed += len(b.reqs)
+                self.metrics.frames_failed += len(b.reqs)
+                sp.set(failed=failed, error=type(b.error).__name__)
                 now = time.perf_counter()
                 results.extend(FailedFrame(
-                    pipeline=name, error=err, rid=r.rid,
-                    latency_s=now - r.submitted_at) for r in reqs)
-                return results
-            dt = time.perf_counter() - t0
-            self._release(reqs)
-            self.metrics.observe_batch(name, len(reqs), self.max_batch, dt,
-                                       smem, rows_per_step=rps)
-            if rung != self._primary_rung:
-                self.metrics.fallback_frames += len(reqs)
+                    pipeline=b.name, error=repr(b.error), rid=r.rid,
+                    latency_s=now - r.submitted_at) for r in b.reqs)
+                continue
+            dt = b.t1 - b.t0
+            self.metrics.observe_batch(b.name, len(b.reqs), self.max_batch,
+                                       dt, b.smem, rows_per_step=b.rps)
+            if b.rung != self._primary_rung:
+                self.metrics.fallback_frames += len(b.reqs)
             now = time.perf_counter()
             now_obs = trace.now()
             missed = 0
-            for r, out in zip(reqs, outs):
+            for r, out in zip(b.reqs, b.outs):
                 lat = now - r.submitted_at
                 self.metrics.observe_latency(lat)
                 late = r.deadline is not None and now_obs > r.deadline
@@ -598,11 +772,11 @@ class FrameEngine:
                     missed += 1
                     self.metrics.observe_deadline_miss(now_obs - r.deadline)
                 results.append(CompletedFrame(
-                    rid=r.rid, pipeline=name, output=out, latency_s=lat,
-                    rung=rung, deadline_missed=late))
-            sp.set(execute_s=dt, rung=rung, delivered=len(reqs),
-                   deadline_missed=missed)
-        return results
+                    rid=r.rid, pipeline=b.name, output=out, latency_s=lat,
+                    rung=b.rung, deadline_missed=late))
+            sp.set(execute_s=dt, rung=b.rung, delivered=len(b.reqs),
+                   deadline_missed=missed,
+                   launched_ahead=len(b.reqs) if b.ahead else 0)
 
     def run(self, requests: list[FrameRequest]) -> dict:
         """Submit everything (respecting backpressure), drain to

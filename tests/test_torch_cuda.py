@@ -907,6 +907,204 @@ def test_the_stagers_threads_end_with_the_engine(cuda_device, busy_host):
     assert resident._stager is None
 
 
+# FrameEngine's lookahead: a step launches the next batch, then waits for
+# the oldest in flight (an event, not the stream) and returns it.
+LOOKAHEAD_BURST = [("canny-m", 4, (270, 480)), ("xcorr-m", 3, (270, 480)),
+                   ("canny-m", 4, (136, 240)), ("harris-m", 4, (270, 480)),
+                   ("xcorr-m", 2, (136, 240)), ("canny-m", 2, (270, 480))]
+
+
+def _burst(pixels, device=None, spec=LOOKAHEAD_BURST, seed=50):
+    """Requests of ``spec`` ((pipeline, frames, (h, w)) in submission
+    order): host float32 or unorm8 frames, or float32 frames on
+    ``device``."""
+    reqs = []
+    for k, (pipe, n, (h, w)) in enumerate(spec):
+        fs = _u8(seed + k, n, h, w) if pixels == "unorm8" \
+            else _frames(seed + k, n, h, w)
+        for f in fs:
+            if device is not None:
+                f = torch.from_numpy(f).to(device)
+            reqs.append(FrameRequest(rid=len(reqs), pipeline=pipe,
+                                     frames={"in": f}))
+    return reqs
+
+
+def _stepped(eng, reqs):
+    """Submit ``reqs``, step until idle: the results in the order
+    returned and ``pending`` after each step."""
+    for r in reqs:
+        assert eng.submit(r) is True
+    out, pending = [], []
+    while res := eng.step():
+        out += res
+        pending.append(eng.pending)
+    return out, pending
+
+
+def _lookahead_against_synchronous(pixels, reqs, device):
+    eng = FrameEngine(max_batch=4, tile_shape=(270, 480), device=device,
+                      pixels=pixels)
+    assert eng._lookahead
+    sync = FrameEngine(max_batch=4, tile_shape=(270, 480), device=device,
+                       pixels=pixels)
+    sync._lookahead = False
+    got, pending = _stepped(eng, reqs)
+    want, _ = _stepped(sync, reqs)
+    assert [c.rid for c in got] == [c.rid for c in want]
+    for p in {r.pipeline for r in reqs}:
+        assert [c.rid for c in got if c.pipeline == p] == \
+            [r.rid for r in reqs if r.pipeline == p]
+    for g, w in zip(got, want):
+        assert torch.equal(g.output, w.output), g.rid
+    assert pending[-1] == 0 and len(pending) == 6
+    assert pending[0] == len(reqs) - 4 and not eng._inflight
+    return eng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pixels", ["float32", "unorm8"])
+def test_the_lookahead_equals_a_synchronous_engine_bitwise(cuda_device,
+                                                            hand_over_path,
+                                                            pixels):
+    """A burst of three pipelines at two shapes, host frames by either
+    hand-over: every output bit for bit a synchronous engine's, every
+    pipeline's frames back in submission order, ``pending`` counting
+    the batch in flight."""
+    eng = _lookahead_against_synchronous(pixels, _burst(pixels),
+                                         cuda_device)
+    if eng._stager is not None:
+        assert eng._stager.counts() == (0, 0) and eng._ahead == {}
+
+
+@pytest.mark.cuda
+def test_the_lookahead_on_frames_on_the_card(cuda_device):
+    """The same burst with frames already on the card."""
+    eng = _lookahead_against_synchronous(
+        "float32", _burst("float32", cuda_device), cuda_device)
+    assert eng._stager is None
+    again = _burst("float32", cuda_device, seed=60)
+    res = eng.run(again)
+    assert sorted(res) == [r.rid for r in again] and eng.pending == 0
+
+
+class _Slow:
+    """An executor whose batches each start behind ``cycles`` of
+    ``torch.cuda._sleep`` on the current stream."""
+
+    def __init__(self, ex, cycles):
+        self.ex, self.cycles = ex, cycles
+        self.smem_bytes = ex.smem_bytes
+
+    def __call__(self, inputs):
+        torch.cuda._sleep(self.cycles)
+        return self.ex(inputs)
+
+
+@pytest.mark.cuda
+def test_every_output_is_complete_when_returned(cuda_device):
+    """Each batch behind ~20 ms of sleep on the card: when ``step()``
+    returns, the returned batch's event has completed with no
+    synchronise by the caller, and the batch launched ahead's has not
+    (the step did not wait for it)."""
+    eng = FrameEngine(max_batch=4, tile_shape=(270, 480),
+                      device=cuda_device)
+    handed_over, record = eng._handed_over, eng._record
+    events = []
+
+    def slow(*a):
+        ex, inputs = handed_over(*a)
+        return _Slow(ex, int(3e7)), inputs
+
+    def logged():
+        events.append(record())
+        return events[-1]
+    eng._handed_over, eng._record = slow, logged
+    reqs = _burst("float32", spec=[("canny-m", 4, (270, 480)),
+                                   ("xcorr-m", 4, (270, 480)),
+                                   ("harris-m", 4, (270, 480))])
+    for r in reqs:
+        assert eng.submit(r)
+    returned, got = 0, []
+    while res := eng.step():
+        assert events[returned].query()
+        if len(events) > returned + 1:
+            assert not events[returned + 1].query()
+        returned += 1
+        assert [c.rid for c in res] == list(range(4 * returned - 4,
+                                                  4 * returned))
+        got += res
+    assert returned == 3 and len(events) == 3
+    assert len({id(e) for e in events}) == 2     # reused
+    for c in got:
+        assert torch.equal(c.output, _plain_out(eng, reqs[c.rid]))
+
+
+def _plain_out(eng, req):
+    return sp.stencil_pipeline_plain(
+        eng.cache.dag_for(req.pipeline),
+        {"in": torch.as_tensor(req.frames["in"], device=eng.device)})
+
+
+@pytest.mark.cuda
+def test_a_launch_that_raises_ahead_fails_its_batch_only(cuda_device):
+    """The batch launched ahead raises at its launch: its frames come
+    back as FailedFrame results right after the batch in flight's; the
+    batches before and after it are served."""
+    eng = FrameEngine(max_batch=4, tile_shape=(270, 480),
+                      device=cuda_device)
+    handed_over = eng._handed_over
+
+    class Broken:
+        smem_bytes = 0
+
+        def __call__(self, inputs):
+            raise RuntimeError("launch failed")
+
+    def breaking(name, *a):
+        ex, inputs = handed_over(name, *a)
+        return (Broken() if name == "xcorr-m" else ex), inputs
+    eng._handed_over = breaking
+    reqs = _burst("float32", spec=[("canny-m", 4, (270, 480)),
+                                   ("xcorr-m", 4, (270, 480)),
+                                   ("harris-m", 4, (270, 480))])
+    got, _ = _stepped(eng, reqs)
+    assert [(c.rid, type(c).__name__) for c in got] == \
+        [(i, "CompletedFrame") for i in range(4)] \
+        + [(i, "FailedFrame") for i in range(4, 8)] \
+        + [(i, "CompletedFrame") for i in range(8, 12)]
+    assert all("launch failed" in c.error for c in got[4:8])
+    for c in got[:4] + got[8:]:
+        assert torch.equal(c.output, _plain_out(eng, reqs[c.rid]))
+    assert eng.pending == 0 and eng.metrics.frames_failed == 4
+
+
+@pytest.mark.cuda
+def test_two_batches_in_flight_leave_the_ring_its_slots(cuda_device,
+                                                        busy_host):
+    """Three batches of host frames staged ahead: while two batches are
+    in flight (the step waits for the older), the ring's slots are held
+    by the queued batch's frames only, so at least ``max_batch`` of its
+    ``2 * max_batch`` slots are free or being refilled."""
+    eng = FrameEngine(max_batch=4, tile_shape=(270, 480),
+                      device=cuda_device)
+    wait, seen = eng._wait, []
+
+    def counted(b):
+        if len(eng._inflight) == 2:
+            seen.append(eng._stager.counts())
+        wait(b)
+    eng._wait = counted
+    reqs = _burst("float32", spec=[("canny-m", 4, (270, 480)),
+                                   ("xcorr-m", 4, (270, 480)),
+                                   ("harris-m", 4, (270, 480))])
+    got, _ = _stepped(eng, reqs)
+    assert [c.rid for c in got] == list(range(12))
+    assert eng._stager.slots == 8 and len(seen) == 2
+    assert all(eng._stager.slots - held >= 4 for _, held in seen)
+    assert eng._stager.counts() == (0, 0) and eng._ahead == {}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("depth", [2, 3, 4])
 @pytest.mark.parametrize("name", NAMES)
