@@ -44,7 +44,13 @@ inputs. Each phase prints one JSON line:
                shape; kernel (per call and device time) / plain / bound
                (5 B a pixel over the data sheet's bandwidth) times and
                those of ``torch.div(raw, 255.0)``, with the byte values
-               whose quotient it rounds otherwise than the table;
+               whose quotient it rounds otherwise than the table; then
+               ``VideoEngine(pixels="unorm8")`` serving a 3840x2160 uint8
+               stream a video pipeline, a chunk of 4 frames and then
+               single frames, traced (a decode launch and an
+               ``engine.unorm8`` span a hand-over, a byte a pixel across),
+               every output against the plain version over the decoded
+               stream;
   5. video_kernel — the temporal kernel (history taps, frame outputs)
                against its plain version: the 4 video pipelines plus an
                internal temporal producer, R in {1, 8}, four frame shapes,
@@ -3373,7 +3379,85 @@ def unorm8_phase(dev, mem_rate: float) -> dict:
          checked_frames=len(served), decode_cases=[list(x.shape)
                                                    for x in cases],
          bytes=nbytes, **entry)
+    unorm8_video(dev)
     return entry
+
+
+def unorm8_video(dev) -> None:
+    """Phase 4b's video part: ``VideoEngine(pixels="unorm8")`` serving one
+    3840x2160 uint8 stream a video pipeline, a chunk of 4 frames, then
+    frames one at a time, traced: one decode launch and one
+    ``engine.unorm8`` span inside each ``engine.assemble``, a byte a
+    pixel across, every output against the plain version over the
+    table-decoded stream."""
+    from repro_torch.core import algorithms
+    from repro_torch.kernels import stencil_pipeline as sp
+    from repro_torch.kernels import unorm8
+    from repro_torch.obs import trace
+    from repro_torch.video import CompletedVideoFrame, VideoEngine, \
+        VideoFrame
+    names = sorted(algorithms.VIDEO_ALGORITHMS)
+    n = 2 * VIDEO_CHUNK
+    eng = VideoEngine(device=dev, chunk=VIDEO_CHUNK, rows_per_step=SERVE_R,
+                      pixels="unorm8")
+    rng = np.random.default_rng(SEED + 49)
+    streams = {eng.open_stream(name, U8_H, U8_W): (name, rng.integers(
+        0, 256, (n, U8_H, U8_W), dtype=np.uint8)) for name in names}
+    done = {sid: [] for sid in streams}
+    # the first chunk builds the executors; the frames after it go one at
+    # a time, so both paths serve
+    groups = [VIDEO_CHUNK] + [1] * (n - VIDEO_CHUNK)
+    launches = unorm8.decode.launches
+    trace.clear()
+    trace.enable()
+    try:
+        t0 = time.perf_counter()
+        t = 0
+        for g in groups:
+            for sid, (_, vid) in streams.items():
+                for f in vid[t:t + g]:
+                    if eng.submit(VideoFrame(sid, {"in": f})) is not True:
+                        fail(f"unorm8 video: stream {sid} refused a frame")
+            while eng.pending:
+                for c in eng.step():
+                    if not isinstance(c, CompletedVideoFrame):
+                        fail(f"unorm8 video: stream {c.stream}: {c!r}")
+                    done[c.stream].append(c.output)
+            t += g
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        events = trace.events()
+    finally:
+        trace.disable()
+        trace.clear()
+    launches = unorm8.decode.launches - launches
+    asm = [e for e in events if e.name == "engine.assemble"]
+    dec = [e for e in events if e.name == "engine.unorm8"]
+    if not launches == len(asm) == len(dec) == len(streams) * len(groups):
+        fail(f"unorm8 video: {launches} decode launches, {len(asm)} "
+             f"hand-overs, {len(dec)} engine.unorm8 spans")
+    if any(e.parent != "engine.assemble" for e in dec):
+        fail("unorm8 video: a decode ran outside engine.assemble")
+    h2d = sum(int(e.attrs.get("h2d_bytes", 0)) for e in asm)
+    if h2d != len(streams) * n * U8_H * U8_W:
+        fail(f"unorm8 video: h2d_bytes {h2d}")
+    max_ulp = 0.0
+    for sid, (name, vid) in streams.items():
+        if len(done[sid]) != n:
+            fail(f"unorm8 video: stream {sid} delivered {len(done[sid])}")
+        x = unorm8.decode_plain(torch.from_numpy(vid).to(dev))
+        _, ulp = ulp_err(torch.stack(done[sid]),
+                         plain_stream(eng.cache.dag_for(name), x))
+        if ulp > TOLERANCE_ULP:
+            fail(f"unorm8 video: stream {sid} ({name}) differs from plain "
+                 f"by {ulp} ULP")
+        max_ulp = max(max_ulp, ulp)
+    rolls = [e for e in events if e.name == "executor.roll"]
+    emit("unorm8", part="video", shape=[U8_H, U8_W], pipelines=names,
+         frames=len(streams) * n, chunk=VIDEO_CHUNK, hand_overs=len(asm),
+         decode_launches=launches, h2d_bytes=h2d,
+         roll_bytes=sum(int(e.attrs.get("roll_bytes", 0)) for e in rolls),
+         serve_s=serve_s, max_ulp=max_ulp)
 
 
 def conv2d_phase(dev, mem_rate: float, flop_rate: float) -> dict:

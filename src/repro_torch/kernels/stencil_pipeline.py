@@ -1002,7 +1002,7 @@ class VideoExecutor:
                                    [rings[p] for p in prog.states])
             out, frames = res if prog.frame_outs else (res, {})
             new_state = {}
-            with trace.span("executor.roll", pipeline=self.dag.name):
+            with trace.span("executor.roll", pipeline=self.dag.name) as sp:
                 for p, d in self.depths.items():
                     # newest first: the launch's frames, last one first,
                     # then the oldest state frames that still fit
@@ -1011,6 +1011,10 @@ class VideoExecutor:
                     new_state[p] = torch.cat(
                         [cur[cur.shape[0] - 1 - i][None] for i in range(n)]
                         + [rings[p][:d - 1 - n]])
+                if sp is not trace.NULL_SPAN:
+                    # each frame the cat writes it also reads once
+                    sp.set(roll_bytes=sum(2 * t.numel() * t.element_size()
+                                          for t in new_state.values()))
             return (out if self.chunk is not None else out[0]), new_state
 
     @property

@@ -25,11 +25,21 @@ only fully-warmed output can drop them.
 up to ``chunk`` frames in one executor call (one kernel launch) when the
 pipeline's temporal taps are input-only, and frame-at-a-time for
 pipelines with internal temporal producers. Frames arrive as numpy
-arrays; a call stacks them and copies them to the device once. Their
-pixels are ``float32(v)`` of whatever float or integer type they come
-in: this engine has no ``pixels`` argument, and the 8-bit unorm8 frames
-that ``FrameEngine(pixels="unorm8")`` decodes on the card as ``v / 255``
-are not served here as such.
+arrays.
+
+``pixels`` is the format of the frames the engine takes, as for
+``FrameEngine``. ``"float32"`` (the default) takes frames of any float
+or integer type and serves ``float32(v)``: a call stacks them and
+copies them to the device once. ``"unorm8"`` takes (H, W) uint8 frames,
+the byte v standing for ``v / 255``: a call hands them over as
+``FrameEngine`` does (:func:`repro_torch.imaging.hand_over.hand_over`),
+copied at one byte a pixel and decoded on the card, under an
+``engine.unorm8`` span inside ``engine.assemble``, before the kernel
+reads them. The frame rings hold the decoded float32 frames, so the
+kernel and the roll are those of the float32 engine; the reference rung
+and its host window decode with the same table
+(:data:`repro_torch.kernels.unorm8.TABLE`). Admission refuses a frame
+of another type.
 
 **Resilient mode** (``resilience=ResilienceConfig(...)``) adds the
 serving control plane: malformed/unknown-stream frames come back as
@@ -67,10 +77,12 @@ import torch
 
 from repro_torch._device import h2d_span, synchronize
 from repro_torch.core.algorithms import execute_reference_video
+from repro_torch.imaging.engine import PIXELS
+from repro_torch.imaging.hand_over import hand_over
 from repro_torch.imaging.metrics import EngineMetrics
 from repro_torch.imaging.plan_cache import PlanCache
 from repro_torch.imaging.tiling import rows_per_step_for_tile
-from repro_torch.kernels import ref
+from repro_torch.kernels import ref, unorm8
 from repro_torch.kernels.stencil_pipeline import init_frame_state
 from repro_torch.obs import trace
 from repro_torch.resilience import (AdmissionController, CancelledFrame,
@@ -120,10 +132,10 @@ class VideoSession:
     warmup_frames: int
     inputs: frozenset                     # required input-stage names
     priority: int = Priority.NORMAL
-    # resilient mode, temporal DAGs only: last ``warmup_frames`` raw
-    # input frames (oldest -> newest, float32 numpy on the host) per
-    # input stage — the window the reference rung replays to serve off
-    # the compiled path
+    # resilient mode, temporal DAGs only: last ``warmup_frames`` input
+    # frames (oldest -> newest, float32 numpy on the host, unorm8 frames
+    # decoded) per input stage — the window the reference rung replays
+    # to serve off the compiled path
     history: dict[str, deque] | None = None
     submitted: int = 0
     delivered: int = 0
@@ -140,7 +152,8 @@ class VideoEngine:
                  autotune: bool = False,
                  registry=None,
                  resilience: ResilienceConfig | None = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 pixels: str = "float32"):
         # ``registry``: a shared obs.MetricsRegistry for the serving
         # telemetry plane; default = a private one per engine. A cache
         # constructed here joins the same registry, compiles under the
@@ -156,6 +169,10 @@ class VideoEngine:
         # opt-in: stream through the cache's autotuned memory config (one
         # memoized design-space search per (pipeline, width))
         self.autotune = autotune
+        if pixels not in PIXELS:
+            raise ValueError(f"pixels must be one of {PIXELS}, got "
+                             f"{pixels!r}")
+        self.pixels = pixels
         self.resilience = resilience
         self._sessions: dict[int, VideoSession] = {}
         self._ids = itertools.count()
@@ -259,6 +276,10 @@ class VideoEngine:
                 raise ValueError(
                     f"stream {s.sid}: frame shape "
                     f"{tuple(np.shape(frame.frames[n]))} != ({s.h}, {s.w})")
+        if self.pixels == "unorm8" and not all(
+                unorm8.is_unorm8(frame.frames[n]) for n in s.inputs):
+            raise ValueError(f"stream {s.sid}: a unorm8 engine takes uint8 "
+                             f"frames")
         frame.submitted_at = time.perf_counter()
         frame.priority = int(s.priority)
         self.metrics.frames_offered += 1
@@ -299,8 +320,9 @@ class VideoEngine:
             return self._reject(RejectedFrame(
                 "unknown_stream", stream=frame.stream,
                 detail=f"no open stream {frame.stream}", rid=frame.rid))
-        defect = screen_frames(frame.frames, s.inputs,
-                               expect_shape=(s.h, s.w))
+        defect = screen_frames(
+            frame.frames, s.inputs, expect_shape=(s.h, s.w),
+            expect_dtype=np.uint8 if self.pixels == "unorm8" else None)
         if defect is not None:
             reason, detail = defect
             return self._reject(RejectedFrame(
@@ -364,13 +386,16 @@ class VideoEngine:
         ex = self.cache.video_executor_for(s.pipeline, s.h, s.w, chunk=n,
                                            rows_per_step=rps, tune=tune,
                                            prefetch_depth=self.prefetch_depth)
-        with h2d_span("engine.assemble",
-                      (f.frames[k] for f in frames for k in s.inputs),
-                      self.device, pipeline=s.pipeline):
-            ins = {name: torch.as_tensor(
-                np.stack([np.asarray(f.frames[name], np.float32)
-                          for f in frames]), device=self.device)
-                for name in s.inputs}
+        if self.pixels == "unorm8":
+            ins = self._hand_over_unorm8(s, frames)
+        else:
+            with h2d_span("engine.assemble",
+                          (f.frames[k] for f in frames for k in s.inputs),
+                          self.device, pipeline=s.pipeline):
+                ins = {name: torch.as_tensor(
+                    np.stack([np.asarray(f.frames[name], np.float32)
+                              for f in frames]), device=self.device)
+                    for name in s.inputs}
         with trace.span("engine.execute", pipeline=s.pipeline):
             out, new_state = ex(ins, s.state)
             synchronize(self.device)
@@ -382,15 +407,34 @@ class VideoEngine:
         ex = self.cache.video_executor_for(s.pipeline, s.h, s.w, chunk=None,
                                            rows_per_step=rps, tune=tune,
                                            prefetch_depth=self.prefetch_depth)
-        with h2d_span("engine.assemble", (f.frames[k] for k in s.inputs),
-                      self.device, pipeline=s.pipeline):
-            ins = {n: torch.as_tensor(np.asarray(f.frames[n], np.float32),
-                                      device=self.device)
-                   for n in s.inputs}
+        if self.pixels == "unorm8":
+            ins = {n: t[0] for n, t in self._hand_over_unorm8(s, [f]).items()}
+        else:
+            with h2d_span("engine.assemble", (f.frames[k] for k in s.inputs),
+                          self.device, pipeline=s.pipeline):
+                ins = {n: torch.as_tensor(
+                    np.asarray(f.frames[n], np.float32), device=self.device)
+                    for n in s.inputs}
         with trace.span("engine.execute", pipeline=s.pipeline):
             out, new_state = ex(ins, s.state)
             synchronize(self.device)
         return [out], new_state, ex.smem_bytes
+
+    def _hand_over_unorm8(self, s: VideoSession, frames: list[VideoFrame]
+                          ) -> dict[str, torch.Tensor]:
+        """``frames``' uint8 inputs as (n, h, w) float32 tensors on the
+        device, by ``FrameEngine``'s hand-over: copied a byte a pixel and
+        decoded there."""
+        return hand_over({n: [f.frames[n] for f in frames] for n in s.inputs},
+                         len(frames), self.device, "unorm8",
+                         pipeline=s.pipeline)
+
+    def _host_f32(self, frame) -> np.ndarray:
+        """A host frame as the float32 frame the kernel reads: decoded by
+        the unorm8 table in a unorm8 engine, else ``float32(v)``."""
+        if self.pixels == "unorm8":
+            return unorm8.TABLE[np.asarray(frame)]
+        return np.asarray(frame, np.float32)
 
     def _reference_serve(self, s: VideoSession, frames: list[VideoFrame]):
         """The ladder's reference rung for a *stateful* stream: replay
@@ -398,8 +442,9 @@ class VideoEngine:
         the eager oracle on the engine's device, return the tail outputs
         and a frame-ring state rebuilt from the oracle's end-of-window
         history. Input producers resync bit for bit (the rings hold raw
-        past inputs); internal temporal producers are recomputed by the
-        kernel's plain version.
+        past inputs; unorm8 frames decoded on the host by the table the
+        card's decode reads); internal temporal producers are recomputed
+        by the kernel's plain version.
         """
         dag = self.cache.dag_for(s.pipeline)
         dev = self.device
@@ -410,8 +455,7 @@ class VideoEngine:
                 pipeline=s.pipeline, reference=True):
             if not dag.is_temporal():
                 outs = [ref.stencil_pipeline_ref(
-                    dag, {k: torch.as_tensor(f.frames[k],
-                                             dtype=torch.float32,
+                    dag, {k: torch.as_tensor(self._host_f32(f.frames[k]),
                                              device=dev)
                           for k in s.inputs}) for f in frames]
                 synchronize(dev)
@@ -419,8 +463,8 @@ class VideoEngine:
             videos = {
                 k: torch.as_tensor(np.stack(
                     list(s.history[k])
-                    + [np.asarray(f.frames[k], np.float32)
-                       for f in frames]), device=dev)
+                    + [self._host_f32(f.frames[k]) for f in frames]),
+                    device=dev)
                 for k in s.inputs}
             out, hist = execute_reference_video(dag, videos,
                                                 return_history=True)
@@ -457,7 +501,7 @@ class VideoEngine:
             return
         for k in s.inputs:
             for f in frames:
-                s.history[k].append(np.asarray(f.frames[k], np.float32))
+                s.history[k].append(self._host_f32(f.frames[k]))
 
     def _rungs(self, s: VideoSession, frames: list[VideoFrame],
                make_compiled):

@@ -695,6 +695,58 @@ def test_no_unorm8_output_shares_storage_with_a_staging_buffer(
             feng.cache.dag_for("unsharp-m"), {"in": x}))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [4, 1])
+def test_unorm8_video_4k_streams_equal_the_reference(cuda_device, chunk):
+    """Two interleaved 3840x2160 uint8 streams a pipeline through a unorm8
+    ``VideoEngine``, in chunks of 4 or frame by frame: every output bit
+    for bit the plain version over the decoded stream; one
+    ``engine.unorm8`` span inside each hand-over, with the decode's one
+    launch, and a byte a pixel across."""
+    from repro_torch.obs import trace
+    from repro_torch.video import CompletedVideoFrame
+    h, w, n = 2160, 3840, 8
+    eng = VideoEngine(chunk=chunk, device=cuda_device, pixels="unorm8")
+    streams = {}
+    for i, name in enumerate(("tbackground-t", "tmotion-t")):
+        for j in range(2):
+            streams[eng.open_stream(name, h, w)] = (
+                name, _u8(40 + 2 * i + j, n, h, w))
+    done = {sid: [] for sid in streams}
+    before = unorm8.decode.launches
+    trace.clear()
+    trace.enable()
+    try:
+        for t in range(0, n, chunk):
+            for sid, (_, vid) in streams.items():
+                for f in vid[t:t + chunk]:
+                    assert eng.submit(VideoFrame(sid, {"in": f})) is True
+            while eng.pending:
+                for c in eng.step():
+                    assert isinstance(c, CompletedVideoFrame), c
+                    done[c.stream].append(c.output)
+        spans = trace.events()
+    finally:
+        trace.disable()
+        trace.clear()
+    hand_overs = len(streams) * n // chunk
+    assert unorm8.decode.launches == before + hand_overs
+    asm = [e for e in spans if e.name == "engine.assemble"]
+    assert [e.attrs["h2d_bytes"] for e in asm] == [chunk * h * w] * \
+        hand_overs
+    dec = [e for e in spans if e.name == "engine.unorm8"]
+    assert [(e.parent, e.attrs["n_frames"], e.attrs["pixels"])
+            for e in dec] == [("engine.assemble", chunk, chunk * h * w)] * \
+        hand_overs
+    for sid, (name, vid) in streams.items():
+        dag = eng.cache.dag_for(name)
+        x = {"in": torch.from_numpy(unorm8.TABLE[vid]).to(cuda_device)}
+        zero = sp.init_frame_state(dag.temporal_depths(), h, w, cuda_device)
+        exp, _ = sp.video_pipeline_plain(
+            dag, {**x, **sp.tap_feeds(dag, x, zero, n)})
+        assert torch.equal(torch.stack(done[sid]), exp), name
+
+
 @pytest.fixture
 def busy_host(monkeypatch):
     """Every admission staging ahead, as while the host is busy."""
